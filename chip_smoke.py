@@ -9,20 +9,27 @@ Phases (each raises on failure; nothing is caught):
 0. the card: `nvidia-smi` name and power limit, torch's device name;
 1. build the FAST/NMS kernel (csrc/fast_nms.cu) with nvcc from the
    checkout, print its build time and ptxas' registers / shared memory;
-2. kernel phase: the kernel against its plain PyTorch version, bitwise, at
-   the 8 pyramid-level shapes of a 752x480 frame (B=2), on random
-   integer images and on the pyramid of one rendered bench-world frame;
-   CUDA-event times of both;
+2. kernel phase: the kernel against its plain PyTorch version, bitwise: the
+   8 pyramid levels of a 752x480 frame (B=2) in one launch
+   (fast_nms_levels), on random integer images and on the pyramid of one
+   rendered bench-world frame, and one-level calls at each of the 8 shapes
+   (fast_nms with B=2, fast_nms_single with B=1). Times on the rendered
+   pyramid: CUDA events around 200 one-launch calls, the same calls
+   replayed from a CUDA graph (no host in the way), with the L2 cache
+   flushed before each call, the plain version, and 8 one-level launches
+   (the call pattern before the levels were fused). The bound is computed
+   from this pyramid's bytes and from the operations its corners need;
 3. slice phase: the port's main path, FusedSlam(cam, SLICE_CFG) on cuda,
    over the 8 s, 20 Hz, 752x480 bench world (bench.py::HARD_WORLD, 160
    frames). The launch counter is reset just before the run and must grow
-   by exactly 8 per frame (one launch per pyramid level). Prints fps after
-   8 warm-up frames, timing_report(), host syncs per frame and peak
+   by exactly 1 per frame (one launch for all pyramid levels). Prints fps
+   after 8 warm-up frames, timing_report(), host syncs per frame and peak
    memory. Then the same world under each sensor-noise draw of the
    recorded JAX reference (orbslam3_tpu_torch/data/slice_reference.json);
-4. a torch.profiler window over 16 frames of a second run: device time by
-   kernel and the device's busy share; the second run's poses must equal
-   the first run's, bit for bit;
+4. a torch.profiler window over 16 frames of a second run, built with no
+   `device` argument (so it must pick the card itself): device time by
+   kernel, the FAST/NMS kernel's own time per frame, and the device's busy
+   share; the second run's poses must equal the first run's, bit for bit;
 5. accuracy against the JAX reference, draw by draw (check_accuracy).
 
 The last two lines are the card's name and power limit and
@@ -42,7 +49,11 @@ HARD_WORLD = dict(texture="textured", exposure_drift=0.3, image_noise_std=3.0,
 DURATION = 8.0
 WARMUP = 8
 PROFILE_FRAMES = 16
-LAUNCHES_PER_FRAME = 8  # one fast_nms launch per pyramid level (OrbConfig().n_levels)
+LAUNCHES_PER_FRAME = 1  # one fast_nms_levels launch for the whole pyramid
+KERNEL_NAME = "fast_nms_kernel"
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def log(*a):
@@ -89,48 +100,125 @@ def build_world():
     return world, times, frames, imu
 
 
-def kernel_phase(frame_left, frame_right):
+def kernel_device_us(prof, n_calls: int):
+    """(device microseconds, launches) per call of the FAST/NMS kernel in a
+    profiler window of n_calls; raises if the profiler saw no such kernel."""
+    evs = [e for e in prof.key_averages()
+           if KERNEL_NAME in e.key and str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    if not evs:
+        raise AssertionError(f"the profiler saw no kernel named *{KERNEL_NAME}*")
+    return sum(device_us(e) for e in evs) / n_calls, sum(e.count for e in evs) / n_calls
+
+
+def kernel_bound(levels, thr_hi=20.0, thr_lo=7.0) -> dict:
+    """The least time the card could take for this pyramid, in ms.
+
+    Bytes: every pixel read once and written once, over the HBM rate.
+    Operations, as this data needs them: at every pixel 16 ring differences,
+    32 compares at the smaller threshold, 8 maxima of the NMS, one multiply
+    and one maximum to combine; at every pixel with a run of 9 at the smaller
+    threshold, 32 compares at the larger one and 4 SADs of 16 x (sub, max,
+    add). `dense_ops_ms` counts the SADs and compares at every pixel, as the
+    plain version computes them."""
+    from orbslam3_tpu_torch.ops.fast import fast_score
+
+    pixels = sum(lv.numel() for lv in levels)
+    corners = sum(int((fast_score(lv, min(thr_hi, thr_lo)) > 0).sum()) for lv in levels)
+    ops = pixels * (16 + 32 + 8 + 2) + corners * (32 + 4 * 16 * 3)
+    dense = pixels * (16 + 2 * (32 + 2 * 16 * 3) + 8 + 2)
+    bytes_ms = 2 * 4 * pixels / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_FLOP_PER_S * 1e3
+    return dict(pixels=pixels, corners=corners, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                dense_ops_ms=dense / F32_FLOP_PER_S * 1e3, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def kernel_phase(frame_left, frame_right) -> dict:
     import numpy as np
     import torch
 
-    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms, fast_nms_reference
+    from orbslam3_tpu_torch.ops.fast_cuda import (fast_nms, fast_nms_levels,
+                                                  fast_nms_reference, fast_nms_single)
     from orbslam3_tpu_torch.ops.pyramid import build_pyramid, level_shapes
 
     dev = torch.device("cuda")
     shapes = level_shapes(480, 752, 8, 1.2)
-    rng = np.random.default_rng(0)
     max_err = 0.0
-    for hw in shapes:
-        x = torch.from_numpy(rng.integers(0, 256, (2,) + hw).astype(np.float32)).to(dev)
-        got, want = fast_nms(x), fast_nms_reference(x)
+
+    def hold(got, want, what):
+        nonlocal max_err
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"fast_nms != fast_nms_reference on random {hw}: max |diff| "
+            raise AssertionError(f"{what} {tuple(want.shape)} != fast_nms_reference: max |diff| "
                                  f"{float((got - want).abs().max())}")
         max_err = max(max_err, float((got - want).abs().max()))
+
+    def hold_levels(levels, what):
+        n0 = fast_nms.launches
+        outs = fast_nms_levels(levels)
+        if fast_nms.launches != n0 + 1:
+            raise AssertionError(f"fast_nms_levels made {fast_nms.launches - n0} launches, not 1")
+        for got, lv in zip(outs, levels):
+            hold(got, fast_nms_reference(lv), f"fast_nms_levels on {what}, level")
+
+    rng = np.random.default_rng(0)
+    rand = [torch.from_numpy(rng.integers(0, 256, (2,) + hw).astype(np.float32)).to(dev)
+            for hw in shapes]
+    hold_levels(rand, "random images")
+    for x in rand:  # the one-level entry points, B=2 and B=1
+        want = fast_nms_reference(x)
+        hold(fast_nms(x), want, "fast_nms on a random stack")
+        hold(fast_nms_single(x[1]), want[1], "fast_nms_single on a random image")
     pair = torch.stack([torch.from_numpy(frame_left), torch.from_numpy(frame_right)]).to(dev)
-    levels = build_pyramid(pair.float(), 8, 1.2)
-    rows = []
-    tot_k = tot_p = 0.0
-    for lv in levels:
-        lv = lv.contiguous()
-        got, want = fast_nms(lv), fast_nms_reference(lv)
+    levels = [lv.contiguous() for lv in build_pyramid(pair.float(), 8, 1.2)]
+    if [tuple(lv.shape[1:]) for lv in levels] != [tuple(hw) for hw in shapes]:
+        raise AssertionError("the rendered frame's pyramid has other shapes than level_shapes")
+    hold_levels(levels, "the rendered frame")
+    log("kernel phase: bitwise equal at all 8 level shapes: one launch for the pyramid "
+        "(random + rendered frame), one-level calls with B=2 and B=1")
+
+    # ---- times, all on the rendered frame's pyramid
+    ms_call = cuda_ms(lambda: fast_nms_levels(levels), 200)
+    ms_per_level = cuda_ms(lambda: [fast_nms(lv) for lv in levels], 200)
+    ms_plain = sum(cuda_ms(lambda lv=lv: fast_nms_reference(lv), 20) for lv in levels)
+    # the same call replayed from a CUDA graph: launches back to back, no host between them
+    reps = 20
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fast_nms_levels(levels)
+    ms_graph = cuda_ms(graph.replay, 20) / reps
+    # with the L2 cache flushed before each call (the pyramid, 17.9 MB in and out, fits in
+    # it). Four 256 MB fills keep the card busy while the host enqueues the call, so the
+    # events see the kernel and not the wrapper.
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    cold = []
+    for _ in range(20):
+        for _ in range(4):
+            flush.zero_()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fast_nms_levels(levels)
+        t1.record()
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"fast_nms != fast_nms_reference on the frame's level "
-                                 f"{tuple(lv.shape)}")
-        max_err = max(max_err, float((got - want).abs().max()))
-        ms_k = cuda_ms(lambda: fast_nms(lv), 200)
-        ms_p = cuda_ms(lambda: fast_nms_reference(lv), 20)
-        tot_k += ms_k
-        tot_p += ms_p
-        rows.append((tuple(lv.shape), ms_k, ms_p))
-    log("kernel phase: bitwise equal at all 8 level shapes (random + rendered frame)")
-    log("  level (B,H,W)        kernel_ms   plain_ms")
-    for shp, a, b in rows:
-        log(f"  {str(shp):20s} {a:9.5f}  {b:9.5f}")
-    log(f"  per frame (8 levels) {tot_k:9.5f}  {tot_p:9.5f}")
-    return max_err, tot_k, tot_p
+        cold.append(t0.elapsed_time(t1))
+    del flush
+    ms_cold = float(np.median(cold))
+    bound = kernel_bound(levels)
+    log(f"  pyramid: {bound['pixels']} pixels, {bound['corners']} with a run of 9 at the low "
+        f"threshold ({100 * bound['corners'] / bound['pixels']:.2f}%)")
+    log(f"  one launch, 200 eager calls (CUDA events)      {ms_call:9.5f} ms/frame")
+    log(f"  one launch, replayed from a CUDA graph         {ms_graph:9.5f} ms/frame")
+    log(f"  one launch, L2 flushed before it (median of 20) {ms_cold:8.5f} ms/frame")
+    log(f"  8 one-level launches (CUDA events)             {ms_per_level:9.5f} ms/frame")
+    log(f"  plain PyTorch version, 8 levels                {ms_plain:9.5f} ms/frame")
+    log(f"  bound: bytes {bound['bytes_ms']:.5f} ms, operations this data needs "
+        f"{bound['ops_ms']:.5f} ms (computed at every pixel: {bound['dense_ops_ms']:.5f} ms) "
+        f"-> {bound['bound_ms']:.5f} ms by {bound['bound_by']}")
+    return dict(max_abs_err=max_err, ms=ms_call, graph_ms=ms_graph, cold_ms=ms_cold,
+                earlier_ms=ms_per_level, plain_ms=ms_plain,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                bound_bytes_ms=bound["bytes_ms"], bound_ops_ms=bound["ops_ms"])
 
 
 def run_slice(world, times, frames, imu, cfg, device="cuda"):
@@ -242,8 +330,8 @@ def main() -> int:
     # ---- 2. kernel phase
     import numpy as np
 
-    max_err, ms_kernel, ms_plain = kernel_phase(frames[0][0].astype(np.float32),
-                                                frames[0][1].astype(np.float32))
+    kern = kernel_phase(frames[0][0].astype(np.float32), frames[0][1].astype(np.float32))
+    log(f"  [{card}]")
 
     # ---- 3. slice phase: the main path through FusedSlam
     from orbslam3_tpu_torch.models.fused import SLICE_CFG
@@ -283,7 +371,9 @@ def main() -> int:
 
     from orbslam3_tpu_torch.models.fused import FusedSlam
 
-    slam2 = FusedSlam(world.cam, SLICE_CFG, device="cuda")
+    slam2 = FusedSlam(world.cam, SLICE_CFG)  # no device given: the card
+    if slam2.device.type != "cuda":
+        raise AssertionError(f"FusedSlam without a device argument runs on {slam2.device}")
     n0 = WARMUP + 8
     for i in range(n0):
         g, a, d = imu[i]
@@ -311,6 +401,12 @@ def main() -> int:
     for e in events[:12]:
         log(f"  {device_us(e) / 1e3 / PROFILE_FRAMES:8.3f} ms/frame "
             f"{e.count // PROFILE_FRAMES:6d}/frame  {e.key[:90]}")
+    us_frame, per_frame = kernel_device_us(prof, PROFILE_FRAMES)
+    log(f"profile: {KERNEL_NAME} {us_frame / 1e3:.5f} ms/frame in {per_frame:g} launch/frame "
+        f"on the main path  [{card}]")
+    if per_frame != LAUNCHES_PER_FRAME:
+        raise AssertionError(f"the profiler saw {per_frame} {KERNEL_NAME} launches per frame, "
+                             f"expected {LAUNCHES_PER_FRAME}")
 
     # ---- 5. the slice's output against the JAX reference (after the
     # profile, so a failing run still shows where its time went)
@@ -319,7 +415,10 @@ def main() -> int:
     log(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
         "replaces": "orbslam3_tpu/ops/fast_pallas.py:147", "launches": launches,
-        "max_abs_err": max_err, "ms": ms_kernel, "plain_ms": ms_plain}]}))
+        "library_ms": None, "profile_ms": us_frame / 1e3,
+        "earlier_ms_is": "8 one-level launches of this kernel, the call pattern before the "
+                         "levels were fused, timed in this run",
+        **kern}]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

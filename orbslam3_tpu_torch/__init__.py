@@ -5,10 +5,12 @@ fixed-capacity structure-of-arrays map, the same configs and defaults and
 the same per-frame outputs. Module paths mirror the JAX package
 (`orbslam3_tpu/x/y.py` -> `orbslam3_tpu_torch/x/y.py`). Every tensor is
 float32/int32/bool/uint8 as in the JAX package (which runs with x64 off),
-and every function takes its device from its inputs.
+and every function takes its device from its inputs; `FusedSlam`, the one
+constructor that picks a device, picks the CUDA card unless told otherwise.
 
 The FAST-16-9 + NMS kernel is hand-written CUDA (csrc/fast_nms.cu, bound in
-ops/fast_cuda.py); everything else is plain PyTorch. A CPU tensor takes
+ops/fast_cuda.py, one launch a frame over all pyramid levels); everything
+else is plain PyTorch. A CPU tensor takes
 each kernel's plain PyTorch version, a CUDA tensor the kernel.
 
 This package never imports JAX or `orbslam3_tpu`.

@@ -13,7 +13,7 @@ import torch
 from orbslam3_tpu_torch.ops import brief as brief_ops
 from orbslam3_tpu_torch.ops import fast as fast_ops
 from orbslam3_tpu_torch.ops import pyramid as pyr_ops
-from orbslam3_tpu_torch.ops.fast_cuda import fast_nms
+from orbslam3_tpu_torch.ops.fast_cuda import fast_nms_levels
 
 BORDER = brief_ops.GHALF + 2  # keep full descriptor gather in-bounds
 
@@ -72,10 +72,10 @@ def detect_orb_pair(left, right, cfg: OrbConfig = OrbConfig()):
 
 
 def _score_maps_batched(levels_b, cfg: OrbConfig):
-    """Per-level NMS'd two-threshold FAST scores: one fast_nms call per
-    level on the (B, h, w) stack."""
-    return [fast_nms(lv.contiguous(), cfg.fast_threshold, cfg.fast_threshold_min)
-            for lv in levels_b]
+    """Per-level NMS'd two-threshold FAST scores of the (B, h, w) stacks:
+    one fast_nms_levels call, one kernel launch, for the whole pyramid."""
+    return fast_nms_levels([lv.contiguous() for lv in levels_b],
+                           cfg.fast_threshold, cfg.fast_threshold_min)
 
 
 def _select_impl(levels, scores, cfg: OrbConfig) -> Features:

@@ -324,8 +324,10 @@ class FusedSlam:
     """Host wrapper around the SLAM step: streams frames, keeps per-frame
     outputs on the device and reads them at the end.
 
-    Runs the stereo slice (SLICE_CFG) at chunk=1 on `device` (default: the
-    camera's device). Everything else raises NotImplementedError."""
+    Runs the stereo slice (SLICE_CFG) at chunk=1 on `device`: the CUDA card
+    unless the caller passes another device (device="cpu" runs on the CPU),
+    and a RuntimeError where there is no card. The camera is moved there.
+    Everything else raises NotImplementedError."""
 
     def __init__(self, cam: Camera, cfg: SlamConfig, vocabulary=None, service_every: int = 8,
                  chunk: int = 1, loop_cfg=None, device=None):
@@ -346,7 +348,14 @@ class FusedSlam:
             raise NotImplementedError(
                 "orbslam3_tpu_torch runs the stereo slice only (models/fused.py::SLICE_CFG); "
                 "not ported yet: " + ", ".join(refused))
-        self.device = torch.device(device) if device is not None else cam.fx.device
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "FusedSlam runs on device 'cuda' by default and no CUDA device is "
+                    "available (torch.cuda.is_available() is False); pass device='cpu' "
+                    "to run on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
         set_full_precision()
         self.cam = cam.to(self.device)
         self.cfg = cfg

@@ -2,7 +2,7 @@
 
 Port of orbslam3_tpu/ops/fast.py. `fast_score`/`nms3x3` are the plain
 PyTorch formulation; the fused two-threshold score + NMS that the front end
-runs is ops/fast_cuda.py::fast_nms (a CUDA kernel on the card).
+runs is ops/fast_cuda.py::fast_nms_levels (a CUDA kernel on the card).
 
 Every image function takes a leading batch: (..., H, W).
 `lax.top_k` keeps the lower index among equal values; the selections here

@@ -27,7 +27,7 @@ world = SyntheticWorld(SyntheticConfig(width=256, height=160, fx=160.0, fy=160.0
 cfg = SLICE_CFG._replace(orb=OrbConfig(n_features=128, n_levels=2),
                          cap=MapCapacity(max_kf=8, n_feat=128, max_mp=1024, max_obs=4),
                          track=TrackConfig(p_local=512), ba_points=512)
-slam = FusedSlam(world.cam, cfg)
+slam = FusedSlam(world.cam, cfg, device="cpu")
 left, right = world.render_frame(0.0)
 out = slam.process_frame(left, right, *world.imu_window(0.0, 0.0), 0.0)
 assert int(out.mode) == MODE_OK and bool(out.is_kf), out

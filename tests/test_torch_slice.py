@@ -48,7 +48,8 @@ def runs():
                                      track=TTrack(p_local=2048), **SMALL)
     out = {}
     for name, slam in (("jax", jfused.FusedSlam(world.cam, jcfg, service_every=4)),
-                       ("torch", tfused.FusedSlam(port_camera(world.cam), tcfg, service_every=4))):
+                       ("torch", tfused.FusedSlam(port_camera(world.cam), tcfg, service_every=4,
+                                                 device="cpu"))):
         for args in inputs:
             slam.process_frame(*args)
         slam.finalize()
@@ -86,7 +87,7 @@ def test_slice_trajectory(runs):
 def test_slice_refuses_unported_options(bad):
     cam = port_camera(SyntheticWorld(SyntheticConfig(**SMALL_WORLD)).cam)
     with pytest.raises(NotImplementedError, match=next(iter(bad))):
-        tfused.FusedSlam(cam, tfused.SLICE_CFG._replace(**bad))
+        tfused.FusedSlam(cam, tfused.SLICE_CFG._replace(**bad), device="cpu")
 
 
 @pytest.mark.parametrize("kwargs", [dict(vocabulary=object()), dict(chunk=4)],
@@ -94,7 +95,7 @@ def test_slice_refuses_unported_options(bad):
 def test_slice_refuses_unported_wrapper_options(kwargs):
     cam = port_camera(SyntheticWorld(SyntheticConfig(**SMALL_WORLD)).cam)
     with pytest.raises(NotImplementedError):
-        tfused.FusedSlam(cam, tfused.SLICE_CFG, **kwargs)
+        tfused.FusedSlam(cam, tfused.SLICE_CFG, device="cpu", **kwargs)
 
 
 def test_slice_refuses_compaction():
@@ -102,7 +103,7 @@ def test_slice_refuses_compaction():
     instead of running on into a full array."""
     cam = port_camera(SyntheticWorld(SyntheticConfig(**SMALL_WORLD)).cam)
     cfg = tfused.SLICE_CFG._replace(cap=TCap(max_kf=8, n_feat=64, max_mp=1024, max_obs=4))
-    slam = tfused.FusedSlam(cam, cfg)
+    slam = tfused.FusedSlam(cam, cfg, device="cpu")
     slam.map = slam.map._replace(n_kf=torch.tensor(5, dtype=torch.int32))
     slam._kf_ub = 5
     with pytest.raises(NotImplementedError, match="compaction"):

@@ -19,18 +19,30 @@ Phases (each raises on failure; nothing is caught):
    flushed before each call, the plain version, and 8 one-level launches
    (the call pattern before the levels were fused). The bound is computed
    from this pyramid's bytes and from the operations its corners need;
-3. slice phase: the port's main path, FusedSlam(cam, SLICE_CFG) on cuda,
-   over the 8 s, 20 Hz, 752x480 bench world (bench.py::HARD_WORLD, 160
-   frames). The launch counter is reset just before the run and must grow
-   by exactly 1 per frame (one launch for all pyramid levels). Prints fps
-   after 8 warm-up frames, timing_report(), host syncs per frame and peak
-   memory. Then the same world under each sensor-noise draw of the
-   recorded JAX reference (orbslam3_tpu_torch/data/slice_reference.json);
-4. a torch.profiler window over 16 frames of a second run, built with no
-   `device` argument (so it must pick the card itself): device time by
-   kernel, the FAST/NMS kernel's own time per frame, and the device's busy
-   share; the second run's poses must equal the first run's, bit for bit;
-5. accuracy against the JAX reference, draw by draw (check_accuracy).
+3. stereo path: FusedSlam(cam, SLICE_CFG) on cuda over the 8 s, 20 Hz,
+   752x480 bench world (bench.py::HARD_WORLD, 160 frames), noise-free here
+   and under sensor-noise draws 1 and 2 of the recorded JAX reference
+   (orbslam3_tpu_torch/data/slice_reference.json; the draws run in phase
+   5). The launch counter is set to 0 just before the run and must have
+   grown by exactly 1 per frame (one launch for all pyramid levels) just
+   after it;
+4. stereo-inertial path, the main path: FusedSlam(cam, BENCH_CFG), built
+   with no `device` argument (so it must pick the card itself), over the
+   same world with its IMU windows. Launch counter as in 3. Raises unless
+   the IMU is initialized at the end and the trajectory is finite with one
+   pose a frame. Prints frames/s after 8 warm-up frames, timing_report(),
+   host syncs per frame, peak device memory, the frame at which the IMU
+   initialized, gravity and biases, map sizes and keyframes culled;
+5. the sensor-noise draws 1 and 2 of both paths, each a full run in a
+   worker process of its own, all four side by side on the card (the step is
+   host-bound), while this process makes a second full run of the
+   stereo-inertial path on the same frames. Its raw poses must equal the
+   first run's bit for bit; a torch.profiler window over 16 of its frames
+   after the IMU initialized (visual-inertial pose solves and at least two
+   VI-BA keyframes) gives device time by kernel, the FAST/NMS kernel's own
+   time and launches per frame, and the device's busy share;
+6. accuracy of both paths against their JAX references, draw by draw
+   (check_accuracy).
 
 The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the kernels' JSON record comes before them.
@@ -49,6 +61,7 @@ HARD_WORLD = dict(texture="textured", exposure_drift=0.3, image_noise_std=3.0,
 DURATION = 8.0
 WARMUP = 8
 PROFILE_FRAMES = 16
+NOISE_SEEDS = (1, 2)  # the sensor-noise draws both references hold
 LAUNCHES_PER_FRAME = 1  # one fast_nms_levels launch for the whole pyramid
 KERNEL_NAME = "fast_nms_kernel"
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
@@ -56,8 +69,16 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(name: str):
+    """Mark a phase with the seconds since the script started."""
+    log(f"[{time.perf_counter() - T0:7.1f} s] {name}")
 
 
 def card_line() -> str:
@@ -87,12 +108,15 @@ def cuda_ms(fn, n: int) -> float:
     return t0.elapsed_time(t1) / n
 
 
-def build_world():
+def build_world(frames=None):
+    """The bench world, its frame times, rendered stereo frames (rendered
+    here unless given) and the IMU window of every frame."""
     from orbslam3_tpu_torch.io.synthetic import SyntheticConfig, SyntheticWorld
 
     world = SyntheticWorld(SyntheticConfig(duration=DURATION, n_landmarks=1500, **HARD_WORLD))
     times = world.frame_times()
-    frames = world.render_sequence(times, workers=min(os.cpu_count() or 2, 8))
+    if frames is None:
+        frames = world.render_sequence(times, workers=min(os.cpu_count() or 2, 8))
     imu = []
     for i, t in enumerate(times):
         t_prev = times[i - 1] if i > 0 else t
@@ -221,29 +245,57 @@ def kernel_phase(frame_left, frame_right) -> dict:
                 bound_bytes_ms=bound["bytes_ms"], bound_ops_ms=bound["ops_ms"])
 
 
-def run_slice(world, times, frames, imu, cfg, device="cuda"):
-    """The main path: FusedSlam.process_frame over every frame. Returns
-    (slam, frames/s after WARMUP frames, host syncs per frame)."""
+def run_slice(world, times, frames, imu, cfg, device=None, profile_at=None):
+    """FusedSlam.process_frame over every frame, on the device FusedSlam
+    picks itself (the card) unless `device` names one. With `profile_at`,
+    frames [profile_at, profile_at + PROFILE_FRAMES) run under torch.profiler.
+    Returns (slam, frames/s after WARMUP frames, host syncs per frame,
+    (profiler, wall seconds of its window) or None)."""
     import torch
 
     from orbslam3_tpu_torch.models.fused import FusedSlam
 
-    slam = FusedSlam(world.cam, cfg, device=device)
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    slam = FusedSlam(world.cam, cfg) if device is None else FusedSlam(world.cam, cfg, device=device)
+    on_card = slam.device.type == "cuda"
+    if device is None and not on_card:
+        raise AssertionError(f"FusedSlam without a device argument runs on {slam.device}")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def step(i):
+        g, a, d = imu[i]
+        slam.process_frame(frames[i][0], frames[i][1], g, a, d, float(times[i]))
+
     n = len(times)
-    for i in range(n):
+    prof = None
+    i = 0
+    while i < n:
         if i == WARMUP:
             sync()
             slam.timing.clear()
             syncs0 = slam.host_syncs
-            if device == "cuda":
+            if on_card:
                 torch.cuda.reset_peak_memory_stats()
             t_start = time.perf_counter()
-        g, a, d = imu[i]
-        slam.process_frame(frames[i][0], frames[i][1], g, a, d, float(times[i]))
+        if i == profile_at:
+            from torch.profiler import ProfilerActivity, profile
+
+            sync()
+            t0 = time.perf_counter()
+            # device activity only: with the host's operators traced too, the
+            # window's several million events took minutes to collect and sum
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                for j in range(i, i + PROFILE_FRAMES):
+                    step(j)
+                sync()
+                wall = time.perf_counter() - t0
+            prof = (p, wall)
+            i += PROFILE_FRAMES
+            continue
+        step(i)
+        i += 1
     slam.finalize()
     elapsed = time.perf_counter() - t_start
-    return slam, (n - WARMUP) / elapsed, (slam.host_syncs - syncs0) / (n - WARMUP)
+    return slam, (n - WARMUP) / elapsed, (slam.host_syncs - syncs0) / (n - WARMUP), prof
 
 
 def accuracy(slam, gt_p, n: int) -> dict:
@@ -265,36 +317,193 @@ def band(ate_jax: float) -> float:
     return max(0.02, 0.5 * ate_jax)
 
 
-def check_accuracy(draws):
-    """The port against the JAX reference, draw by draw.
+def check_accuracy(path: str, draws):
+    """One path of the port against its JAX reference, draw by draw.
 
     Every draw keeps ok_frac within 0.05 of the reference's. Every
     sensor-noise draw lands within band(ATE_jax) of the reference's ATE on
     the same draw, and the median ATE over all draws within band of the
     reference's median. The noise-free draw's own ATE is reported, not
-    held: there the reference sits on an exact float32 tie of the keyframe
-    gate (frame 56, 133 inliers against 0.7 * 190), and a single BRIEF bit
-    that float32 rounding flips on the way decides the branch (PERF.md)."""
+    held, on both paths. On the stereo path the reference sits on an exact
+    float32 tie of the keyframe gate (frame 56, 133 inliers against
+    0.7 * 190), and a single BRIEF bit that float32 rounding flips on the
+    way decides the branch. On the stereo-inertial path the same front-end
+    bits meet other discrete decisions (keyframe gate, cull threshold), and
+    the run was measured to leave the reference's branch while both noise
+    draws stay within 1e-4 m of it (PERF.md); `first_divergence` prints
+    where."""
     import numpy as np
 
     for d in draws:
+        log(f"accuracy, {path}, draw seed {d['seed']}: ATE {d['ate']:.5f} m "
+            f"(JAX {d['jax']['ate_m']:.5f}), ok_frac {d['ok_frac']:.4f} "
+            f"(JAX {d['jax']['ok_frac']:.4f}), n_kf {d['n_kf']} (JAX {d['jax']['n_kf']})")
+    for d in draws:
         if d["ok_frac"] < d["jax"]["ok_frac"] - 0.05:
-            raise AssertionError(f"draw {d['seed']}: ok_frac {d['ok_frac']:.4f} below the JAX "
-                                 f"reference {d['jax']['ok_frac']:.4f} - 0.05")
+            raise AssertionError(f"{path}, draw {d['seed']}: ok_frac {d['ok_frac']:.4f} below the "
+                                 f"JAX reference {d['jax']['ok_frac']:.4f} - 0.05")
         if d["seed"] is not None and abs(d["ate"] - d["jax"]["ate_m"]) > band(d["jax"]["ate_m"]):
-            raise AssertionError(f"draw {d['seed']}: ATE {d['ate']:.4f} m outside the JAX band "
-                                 f"{d['jax']['ate_m']:.4f} +- {band(d['jax']['ate_m']):.4f}")
+            raise AssertionError(f"{path}, draw {d['seed']}: ATE {d['ate']:.4f} m outside the JAX "
+                                 f"band {d['jax']['ate_m']:.4f} +- {band(d['jax']['ate_m']):.4f}")
     med = float(np.median([d["ate"] for d in draws]))
     med_jax = float(np.median([d["jax"]["ate_m"] for d in draws]))
-    log(f"accuracy: median ATE over {len(draws)} draws {med:.5f} m, JAX {med_jax:.5f} m "
+    log(f"accuracy, {path}: median ATE over {len(draws)} draws {med:.5f} m, JAX {med_jax:.5f} m "
         f"(band +-{band(med_jax):.4f})")
     if abs(med - med_jax) > band(med_jax):
-        raise AssertionError(f"median ATE {med:.4f} m outside the JAX band {med_jax:.4f} "
-                             f"+- {band(med_jax):.4f}")
+        raise AssertionError(f"{path}: median ATE {med:.4f} m outside the JAX band "
+                             f"{med_jax:.4f} +- {band(med_jax):.4f}")
+
+
+def second_run_and_profile(world, times, frames, imu, first, card) -> float:
+    """A second full stereo-inertial run whose raw poses must equal
+    `first`'s bit for bit, with a torch.profiler window placed after the IMU
+    initialized. Prints device time by kernel; returns the FAST/NMS kernel's
+    device milliseconds per frame."""
+    import numpy as np
+
+    from orbslam3_tpu_torch.models.fused import BENCH_CFG
+
+    n = len(times)
+    p0 = min(first._imu_init_frame + 1 + 8, n - PROFILE_FRAMES)
+    second, _, _, (prof, wall) = run_slice(world, times, frames, imu, BENCH_CFG, profile_at=p0)
+    a, b = second._flat_outs()[1], first._flat_outs()[1]
+    same = bool(np.array_equal(a.p, b.p) and np.array_equal(a.q, b.q))
+    log(f"reproducible: a second full stereo-inertial run's {n} raw poses equal the first "
+        f"run's: {same}")
+    if not same:
+        raise AssertionError("two stereo-inertial runs on the same frames gave different poses")
+    n_kfs = int(a.is_kf[p0:p0 + PROFILE_FRAMES].sum())
+    if n_kfs < 2:
+        raise AssertionError(f"the profiler window holds {n_kfs} keyframes, fewer than 2")
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    dev_us = sum(device_us(e) for e in events)
+    events.sort(key=device_us, reverse=True)
+    log(f"profile: stereo-inertial frames {p0}..{p0 + PROFILE_FRAMES - 1} ({n_kfs} VI-BA "
+        f"keyframes), wall {wall * 1e3 / PROFILE_FRAMES:.2f} ms/frame, device busy "
+        f"{dev_us / 1e3 / PROFILE_FRAMES:.2f} ms/frame "
+        f"({100 * dev_us / 1e6 / max(wall, 1e-9):.1f}% of wall; device tracing on, the noise "
+        f"draws' worker processes beside it)  [{card}]")
+    for e in events[:14]:
+        log(f"  {device_us(e) / 1e3 / PROFILE_FRAMES:8.3f} ms/frame "
+            f"{e.count / PROFILE_FRAMES:8.1f}/frame  {e.key[:90]}")
+    us_frame, per_frame = kernel_device_us(prof, PROFILE_FRAMES)
+    log(f"profile: {KERNEL_NAME} {us_frame / 1e3:.5f} ms/frame in {per_frame:g} launch/frame "
+        f"on the main path  [{card}]")
+    if per_frame != LAUNCHES_PER_FRAME:
+        raise AssertionError(f"the profiler saw {per_frame} {KERNEL_NAME} launches per frame, "
+                             f"expected {LAUNCHES_PER_FRAME}")
+    return us_frame
+
+
+CONFIGS = {"stereo": "SLICE_CFG", "stereo-inertial": "BENCH_CFG"}
+
+
+def start_draw_workers(frames, jobs):
+    """One child process per (path, seed) in `jobs`, all at once: each runs
+    this script in worker mode on the frames saved to `build/` and prints one
+    JSON line. The step is host-bound (the card is busy a few percent of the
+    time), so the draws run side by side on one card instead of in turn.
+    Returns [(path, seed, Popen, its stdout file, its stderr file)]."""
+    import numpy as np
+
+    tmp = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(tmp, exist_ok=True)
+    frames_file = os.path.join(tmp, "frames.npy")
+    np.save(frames_file, np.asarray(frames))
+    workers = []
+    for path, seed in jobs:
+        # output goes to files: a full pipe would stall a worker until it is read
+        out, err = (open(os.path.join(tmp, f"{path}_{seed}.{ext}"), "w+") for ext in ("out", "err"))
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--draw", path,
+                                 str(seed), frames_file], stdout=out, stderr=err)
+        workers.append((path, seed, proc, out, err))
+    return workers
+
+
+def collect_draw_workers(workers) -> dict:
+    """Wait for every worker; {(path, seed): its record}. Raises if one failed."""
+    out, failed = {}, []
+    for path, seed, proc, f_out, f_err in workers:
+        proc.wait()
+        f_out.seek(0)
+        f_err.seek(0)
+        if proc.returncode != 0:
+            failed.append(f"{path} draw {seed}: exit {proc.returncode}\n{f_err.read()[-2000:]}")
+            continue
+        out[(path, seed)] = json.loads(f_out.read().strip().splitlines()[-1])
+    if failed:
+        raise AssertionError("draw workers failed:\n" + "\n".join(failed))
+    return out
+
+
+def draw_worker(path: str, seed: int, frames_file: str) -> int:
+    """Worker mode: one full run of `path` under sensor-noise draw `seed`."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py --draw: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from orbslam3_tpu_torch.io.synthetic import perturb_frames
+    from orbslam3_tpu_torch.models import fused
+
+    frames = [tuple(f) for f in np.load(frames_file)]
+    world, times, frames, imu = build_world(frames)
+    slam, fps, _, _ = run_slice(world, times, perturb_frames(frames, seed), imu,
+                                getattr(fused, CONFIGS[path]))
+    gt_p, _ = world.gt_trajectory()
+    print(json.dumps(dict(fps=fps, culled=int(slam.map.n_kf) - int(slam.map.kf_valid.sum()),
+                          imu_init_frame=slam._imu_init_frame,
+                          **accuracy(slam, gt_p, len(times)))), flush=True)
+    return 0
+
+
+def first_divergence(slam, ref) -> str:
+    """Where a noise-free run first departs from the reference's per-frame
+    record (keyframe decisions, match and inlier counts; positions by more
+    than 1 mm), with the reference's margin to the keyframe gate there."""
+    import numpy as np
+
+    outs, pf = slam._flat_outs()[1], ref["per_frame"]
+    _, ps, _ = slam.trajectory_arrays()
+    parts = []
+    for name, got in (("is_kf", outs.is_kf.astype(int)), ("n_matches", outs.n_matches),
+                      ("n_inliers", outs.n_inliers)):
+        bad = np.flatnonzero(np.asarray(got) != np.asarray(pf[name]))
+        parts.append(f"{name} from frame {bad[0]} (port {int(got[bad[0]])}, JAX "
+                     f"{pf[name][bad[0]]})" if len(bad) else f"{name} never")
+    far = np.flatnonzero(np.linalg.norm(ps - np.asarray(pf["p"]), axis=1) > 1e-3)
+    parts.append(f"position by > 1 mm from frame {far[0]}" if len(far) else "position never")
+    if "gate_margin" in pf:
+        m = np.abs(np.asarray(pf["gate_margin"]))
+        ok = np.asarray(pf["n_inliers"]) > 25
+        near = [f"{i} ({pf['gate_margin'][i]:+.1f})" for i in np.flatnonzero((m <= 3.0) & ok)]
+        parts.append("reference frames within 3 inliers of the keyframe gate: "
+                     + (", ".join(near) or "none"))
+    return "; ".join(parts)
+
+
+def counted_run(path, world, times, frames, imu, cfg, **kw):
+    """A run of one path with the kernel's launch counter set to 0 just
+    before it and read just after: exactly LAUNCHES_PER_FRAME per frame."""
+    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms
+
+    fast_nms.launches = 0
+    out = run_slice(world, times, frames, imu, cfg, **kw)
+    launches = fast_nms.launches
+    if launches != LAUNCHES_PER_FRAME * len(times):
+        raise AssertionError(f"{path}: fast_nms launched {launches} times over {len(times)} "
+                             f"frames, expected {LAUNCHES_PER_FRAME} per frame")
+    return out, launches
 
 
 def main() -> int:
     import torch
+
+    if len(sys.argv) == 5 and sys.argv[1] == "--draw":
+        return draw_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4])
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -314,6 +523,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 0. the card
+    phase("0 the card, 1 build, 2 kernel")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
@@ -333,88 +543,92 @@ def main() -> int:
     kern = kernel_phase(frames[0][0].astype(np.float32), frames[0][1].astype(np.float32))
     log(f"  [{card}]")
 
-    # ---- 3. slice phase: the main path through FusedSlam
-    from orbslam3_tpu_torch.models.fused import SLICE_CFG
-    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms
+    # ---- 3. the stereo path (SLICE_CFG), noise-free (its noise draws run in phase 5)
+    phase("3 stereo path")
+    from orbslam3_tpu_torch.models.fused import BENCH_CFG, SLICE_CFG
 
-    fast_nms.launches = 0
-    slam, fps, syncs_per_frame = run_slice(world, times, frames, imu, SLICE_CFG)
-    launches = fast_nms.launches
-    if launches != LAUNCHES_PER_FRAME * len(times):
-        raise AssertionError(f"fast_nms launched {launches} times over {len(times)} frames, "
-                             f"expected {LAUNCHES_PER_FRAME} per frame")
-    peak = torch.cuda.max_memory_allocated()
+    data = os.path.join(ROOT, "orbslam3_tpu_torch", "data")
+    with open(os.path.join(data, "slice_reference.json")) as f:
+        ref_stereo = json.load(f)
+    with open(os.path.join(data, "vi_reference.json")) as f:
+        ref_vi = json.load(f)
+    n = len(times)
+    (slam, fps, syncs_per_frame, _), launches_stereo = counted_run(
+        "stereo", world, times, frames, imu, SLICE_CFG)
+    log(f"stereo: {n} frames, n_kf {int(slam.map.n_kf)} (JAX {ref_stereo['n_kf']}), "
+        f"n_mp {int(slam.map.n_mp)} (JAX {ref_stereo['n_mp']})")
+    log(f"stereo: {fps:.3f} frames/s after {WARMUP} warm-up frames, host syncs/frame "
+        f"{syncs_per_frame:.3f}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, fast_nms launches "
+        f"{launches_stereo} ({launches_stereo / n:.1f}/frame)  [{card}]")
+    log("stereo timing_report (host wall, ms/call): " + json.dumps(slam.timing_report()))
     gt_p, _ = world.gt_trajectory()
-    with open(os.path.join(ROOT, "orbslam3_tpu_torch", "data", "slice_reference.json")) as f:
-        ref = json.load(f)
-    draws = [dict(seed=None, jax=ref["draws"][0], **accuracy(slam, gt_p, len(times)))]
-    log(f"slice: {len(times)} frames, n_kf {int(slam.map.n_kf)} (JAX {ref['n_kf']}), "
-        f"n_mp {int(slam.map.n_mp)} (JAX {ref['n_mp']})")
-    log(f"slice: {fps:.3f} frames/s after {WARMUP} warm-up frames, host syncs/frame "
-        f"{syncs_per_frame:.3f}, peak device memory {peak / 2**20:.1f} MiB, "
-        f"fast_nms launches {launches} ({launches / len(times):.1f}/frame)  [{card}]")
-    log("timing_report (host wall, ms/call): " + json.dumps(slam.timing_report()))
-    # the same world under the reference's sensor-noise draws
-    from orbslam3_tpu_torch.io.synthetic import perturb_frames
+    clean_stereo = accuracy(slam, gt_p, n)
+    log("stereo, noise-free against the reference: " + first_divergence(slam, ref_stereo))
+    del slam
 
-    for jd in ref["draws"][1:]:
-        s_, fps_, _ = run_slice(world, times, perturb_frames(frames, jd["seed"]), imu, SLICE_CFG)
-        draws.append(dict(seed=jd["seed"], jax=jd, **accuracy(s_, gt_p, len(times))))
-        log(f"  draw seed {jd['seed']}: {fps_:.3f} frames/s")
-    for d in draws:
-        log(f"accuracy, draw seed {d['seed']}: ATE {d['ate']:.5f} m (JAX {d['jax']['ate_m']:.5f}), "
-            f"ok_frac {d['ok_frac']:.4f} (JAX {d['jax']['ok_frac']:.4f}), n_kf {d['n_kf']} "
-            f"(JAX {d['jax']['n_kf']})")
+    # ---- 4. the stereo-inertial path (BENCH_CFG): the main path
+    phase("4 stereo-inertial path")
+    (vi, fps, syncs_per_frame, _), launches = counted_run(
+        "stereo-inertial", world, times, frames, imu, BENCH_CFG)
+    peak = torch.cuda.max_memory_allocated()
+    if not vi.imu_initialized or not bool(vi.ts.imu_ok):
+        raise AssertionError("stereo-inertial: the IMU was not initialized by the end of the run")
+    n_kf, n_mp = int(vi.map.n_kf), int(vi.map.n_mp)
+    kf_live = int(vi.map.kf_valid.sum())
+    jd = ref_vi["draws"][0]
+    fmt = (lambda x: np.round(x.cpu().numpy().astype(np.float64), 5).tolist())
+    log(f"stereo-inertial: {n} frames, n_kf {n_kf} (JAX {jd['n_kf']}), n_mp {n_mp} "
+        f"(JAX {jd['n_mp']}), keyframes culled {n_kf - kf_live} (JAX "
+        f"{jd['n_kf'] - jd['n_kf_valid']}), IMU refines {vi.imu_refines}  [{card}]")
+    log(f"stereo-inertial: IMU initialized at frame {vi._imu_init_frame} (JAX "
+        f"{jd['imu_init_frame']}), gravity {fmt(vi.ts.gravity_w)} (JAX {jd['gravity_w']}), "
+        f"gyro bias {fmt(vi.ts.bg)}, accel bias {fmt(vi.ts.ba)}  [{card}]")
+    log(f"stereo-inertial: {fps:.3f} frames/s after {WARMUP} warm-up frames, host syncs/frame "
+        f"{syncs_per_frame:.3f}, peak device memory {peak / 2**20:.1f} MiB, fast_nms launches "
+        f"{launches} ({launches / n:.1f}/frame)  [{card}]")
+    log("stereo-inertial timing_report (host wall, ms/call): " + json.dumps(vi.timing_report()))
 
-    # ---- 4. profile a steady window of a second run (device time by kernel)
-    from torch.profiler import ProfilerActivity, profile
+    clean_vi = accuracy(vi, gt_p, n)
+    log("stereo-inertial, noise-free against the reference: " + first_divergence(vi, ref_vi))
 
-    from orbslam3_tpu_torch.models.fused import FusedSlam
+    # ---- 5. the sensor-noise draws of both paths, side by side in worker
+    # processes, while this process makes a second full run: equal poses, and
+    # a profiler window after the IMU initialized (device time by kernel)
+    phase("5 noise draws in worker processes, second run with profiler window")
+    workers = start_draw_workers(frames, [(path, seed) for path in CONFIGS for seed in NOISE_SEEDS])
+    try:
+        us_frame = second_run_and_profile(world, times, frames, imu, vi, card)
+        phase("5 second run done, waiting for the draws")
+        records = collect_draw_workers(workers)
+    finally:
+        for _, _, proc, f_out, f_err in workers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f_out.close()
+            f_err.close()
 
-    slam2 = FusedSlam(world.cam, SLICE_CFG)  # no device given: the card
-    if slam2.device.type != "cuda":
-        raise AssertionError(f"FusedSlam without a device argument runs on {slam2.device}")
-    n0 = WARMUP + 8
-    for i in range(n0):
-        g, a, d = imu[i]
-        slam2.process_frame(frames[i][0], frames[i][1], g, a, d, float(times[i]))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n0, n0 + PROFILE_FRAMES):
-            g, a, d = imu[i]
-            slam2.process_frame(frames[i][0], frames[i][1], g, a, d, float(times[i]))
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n2 = n0 + PROFILE_FRAMES
-    same = bool(np.array_equal(slam2._flat_outs()[1].p, slam._flat_outs()[1].p[:n2]))
-    log(f"reproducible: a second run's first {n2} raw poses equal the first run's: {same}")
-    if not same:
-        raise AssertionError("two runs on the same frames gave different poses")
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
-    dev_us = sum(device_us(e) for e in events)
-    events.sort(key=device_us, reverse=True)
-    log(f"profile: {PROFILE_FRAMES} frames, wall {wall * 1e3 / PROFILE_FRAMES:.2f} ms/frame, "
-        f"device busy {dev_us / 1e3 / PROFILE_FRAMES:.2f} ms/frame "
-        f"({100 * dev_us / 1e6 / max(wall, 1e-9):.1f}% of wall; profiler on)")
-    for e in events[:12]:
-        log(f"  {device_us(e) / 1e3 / PROFILE_FRAMES:8.3f} ms/frame "
-            f"{e.count // PROFILE_FRAMES:6d}/frame  {e.key[:90]}")
-    us_frame, per_frame = kernel_device_us(prof, PROFILE_FRAMES)
-    log(f"profile: {KERNEL_NAME} {us_frame / 1e3:.5f} ms/frame in {per_frame:g} launch/frame "
-        f"on the main path  [{card}]")
-    if per_frame != LAUNCHES_PER_FRAME:
-        raise AssertionError(f"the profiler saw {per_frame} {KERNEL_NAME} launches per frame, "
-                             f"expected {LAUNCHES_PER_FRAME}")
-
-    # ---- 5. the slice's output against the JAX reference (after the
-    # profile, so a failing run still shows where its time went)
-    check_accuracy(draws)
+    # ---- 6. both paths against their JAX references (last, so a failing run
+    # still shows where its time went)
+    phase("6 accuracy")
+    for path, clean, ref in (("stereo", clean_stereo, ref_stereo),
+                             ("stereo-inertial", clean_vi, ref_vi)):
+        by_seed = {d["seed"]: d for d in ref["draws"]}
+        draws = [dict(seed=None, jax=by_seed[None], **clean)]
+        for seed in NOISE_SEEDS:
+            rec = records[(path, seed)]
+            log(f"  {path}, draw seed {seed}: {rec['fps']:.3f} frames/s beside "
+                f"{len(workers)} other runs on the card, keyframes culled {rec['culled']}, IMU "
+                f"initialized at frame {rec['imu_init_frame']}")
+            draws.append(dict(seed=seed, jax=by_seed[seed],
+                              **{k: rec[k] for k in ("ate", "ok_frac", "n_kf")}))
+        check_accuracy(path, draws)
 
     log(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
         "replaces": "orbslam3_tpu/ops/fast_pallas.py:147", "launches": launches,
+        "launches_by_path": {"stereo": launches_stereo, "stereo_inertial": launches},
         "library_ms": None, "profile_ms": us_frame / 1e3,
         "earlier_ms_is": "8 one-level launches of this kernel, the call pattern before the "
                          "levels were fused, timed in this run",

@@ -1,6 +1,7 @@
 """Structure-of-arrays map state and its mutation ops.
 
-Port of the parts of orbslam3_tpu/map/slam_map.py the stereo slice runs.
+Port of the parts of orbslam3_tpu/map/slam_map.py the stereo and
+stereo-inertial paths run (compaction, eviction and drop_map are not here).
 Ids are row indices; `MapState` has the JAX package's field names, shapes
 and dtypes, so the two can be compared field by field.
 
@@ -341,6 +342,45 @@ def local_window(st: MapState, kf_id, window: int):
     return ids, valid
 
 
+def local_window_temporal(st: MapState, kf_id, window: int, n_temporal: int):
+    """Like local_window, but the first `n_temporal` neighbour slots are the
+    kf_prev temporal-chain predecessors, the rest the covisibility top-k
+    with the chain's rows masked out (no duplicates)."""
+    n_temporal = min(n_temporal, window - 1)
+    if n_temporal <= 0:
+        return local_window(st, kf_id, window)
+    K = st.kf_valid.shape[0]
+    dev = st.kf_valid.device
+    kk = kf_id.long().clamp(0, K - 1)
+    same_map = st.kf_map_id == st.kf_map_id[kk]
+
+    chain = []
+    c = kf_id.to(I32)
+    for _ in range(n_temporal):
+        c = torch.where(c >= 0, st.kf_prev[c.long().clamp(0, K - 1)], torch.full_like(c, -1))
+        chain.append(c)
+    chain = torch.stack(chain)
+    chain_safe = chain.long().clamp(0, K - 1)
+    chain_ok = ((chain >= 0) & st.kf_valid[chain_safe] & same_map[chain_safe]
+                & (chain != kf_id))
+    # order-free scatter-max
+    in_chain = torch.zeros(K, dtype=I32, device=dev).scatter_reduce(
+        0, chain_safe, chain_ok.to(I32), "amax") > 0
+
+    weights = st.covis[kk] * st.kf_valid.to(I32) * same_map.to(I32)
+    weights = weights.index_fill(0, kk.reshape(1), 0)
+    weights = torch.where(in_chain, torch.zeros_like(weights), weights)
+    k_eff = max(min(window - 1 - n_temporal, K), 0)
+    w, ids = topk_stable(weights, k_eff)
+    pad = window - 1 - n_temporal - k_eff
+    if pad:
+        ids = torch.nn.functional.pad(ids, (0, pad))
+        w = torch.nn.functional.pad(w, (0, pad))
+    ids = torch.cat([kf_id.reshape(1).to(I32), chain_safe.to(I32), ids.to(I32)])
+    valid = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), chain_ok, w > 0])
+    return ids, valid
+
+
 def mp_slots_for_kfs(st: MapState, kf_ids, kf_valid, max_points: int):
     """Distinct map points observed by a set of keyframes:
     (mp_ids (P,), valid (P,)) with P = max_points, padded."""
@@ -380,3 +420,28 @@ def create_new_map(st: MapState):
 
 def count_map_keyframes(st: MapState, map_id):
     return torch.sum(st.kf_valid & (st.kf_map_id == map_id), dtype=I32)
+
+
+def spawn_map_points(st: MapState, kf_id, feat_idx, Xw, valid):
+    """Allocate new map points at world positions Xw for features of kf_id.
+
+    feat_idx, Xw, valid are (B,) aligned; returns (MapState, new_ids (B,),
+    -1 where no point was made)."""
+    from orbslam3_tpu_torch.frontend.stereo import pow12
+
+    M = st.mp_pos.shape[0]
+    K = st.kf_valid.shape[0]
+    kk = kf_id.long().clamp(0, K - 1)
+    new_ids = st.n_mp + torch.cumsum(valid.to(I32), 0, dtype=I32) - 1
+    valid = valid & (new_ids < M)
+    ids_safe = torch.where(valid, new_ids, torch.zeros_like(new_ids))
+    f_safe = torch.where(valid, feat_idx, torch.zeros_like(feat_idx)).long()
+
+    view = Xw - st.kf_p[kk][None]
+    dist = torch.linalg.norm(view, dim=-1).clamp(min=1e-6)
+    normal = view / dist[:, None]
+    max_d = dist * pow12(st.kf_octave[kk][f_safe])
+    min_d = max_d / (1.2 ** 7)
+    st = _spawn_rows(st, ids_safe, valid, Xw, st.kf_desc[kk][f_safe], normal, min_d, max_d, kf_id)
+    st = associate_batch(st, kf_id, f_safe.to(I32), ids_safe, valid)
+    return st, torch.where(valid, ids_safe, torch.full_like(ids_safe, -1))

@@ -1,23 +1,30 @@
-"""The per-frame SLAM step and its host wrapper, for the stereo slice.
+"""The per-frame SLAM step and its host wrapper.
 
 Port of orbslam3_tpu/models/fused.py at chunk=1: `TrackState`, `FrameOut`,
-`_frontend`, `_slam_step_core` and `FusedSlam`. The JAX package runs the
-whole step as one XLA program with lax.cond branches; here the step runs
-eagerly on the state's device and each lax.cond on a device value became:
+`_frontend`, `_slam_step_core` and `FusedSlam` with its IMU host services
+(initialization, time-phased refinement, the static-start reset). The JAX
+package runs the whole step as one XLA program with lax.cond branches; here
+the step runs eagerly on the state's device and each lax.cond became:
 
-* one host read of a few flags (`FusedSlam._sync`), for the expensive
-  branches: the lost-timeout reset, the keyframe insert, and inside it
-  local BA and the map-point cull. The four flags are read together, once
-  per frame; only a frame that resets the map and inserts a keyframe in
-  one go reads the BA flag a second time;
+* one host read per frame of a few flags and counters together
+  (`FusedSlam._sync`): the lost-timeout reset, the keyframe insert, the
+  map-point cull, whether tracking held, the active map's keyframe count
+  (it decides local BA, triangulation, fusion, point statistics and the
+  keyframe cull inside the insert), and the tracker mode and row counts the
+  host services want. After a lost-timeout reset the active map is empty,
+  so the host knows the count without a second read;
 * torch.where over both results, for the reference-keyframe Hamming
-  fallback (one (N, N) Hamming matrix);
+  fallback and the RANSAC seed that follows it (one (N, N) Hamming matrix
+  and 128 three-point hypotheses a frame);
+* a masked write, for a keyframe cull that may find no candidate
+  (`mapping_ops.remove_keyframe(..., enable=)`);
 * nothing, for the choice between the visual and the visual-inertial pose
-  solve: `imu_ok` changes only in the host's IMU-initialization service,
-  which the slice does not run, so the host knows it is False.
+  solve and bundle adjustment: `imu_ok` changes only in the host's
+  IMU-initialization service, so the host knows it, as it knows whether the
+  frame came with IMU samples.
 
-`FusedSlam` refuses (NotImplementedError) every option whose code path is
-not ported yet, and map compaction: see SLICE_CFG.
+`FusedSlam` refuses (NotImplementedError) a vocabulary (loop closing),
+chunk>1 and map compaction.
 """
 from __future__ import annotations
 
@@ -33,14 +40,21 @@ from orbslam3_tpu_torch.frontend.orb import detect_orb_pair
 from orbslam3_tpu_torch.frontend.stereo import match_stereo
 from orbslam3_tpu_torch.geometry import quat
 from orbslam3_tpu_torch.imu import preintegration as pre
+from orbslam3_tpu_torch.map import mapping_ops as mo
 from orbslam3_tpu_torch.map import slam_map as sm
+from orbslam3_tpu_torch.map.triangulation import triangulate_with_neighbor
 from orbslam3_tpu_torch.models import policy
-from orbslam3_tpu_torch.models.local_mapper import apply_ba_results, build_ba_problem
+from orbslam3_tpu_torch.models.local_mapper import (apply_ba_results, apply_vi_ba_results,
+                                                    build_ba_problem, build_vi_ba_problem)
 from orbslam3_tpu_torch.models.slam import SlamConfig
 from orbslam3_tpu_torch.models.tracker import match_local_map, update_point_counters
 from orbslam3_tpu_torch.ops.hamming import hamming_matrix
+from orbslam3_tpu_torch.optim.imu_init import inertial_init
 from orbslam3_tpu_torch.optim.local_ba import solve_local_ba
-from orbslam3_tpu_torch.optim.pose_only import pose_optimize, visual_residuals
+from orbslam3_tpu_torch.optim.pose_only import (pose_inertial_optimize, pose_optimize,
+                                                visual_residuals)
+from orbslam3_tpu_torch.optim.robust_pose import robust_pose_3d3d
+from orbslam3_tpu_torch.optim.vi_ba import solve_vi_ba
 
 MODE_NOT_INIT = 0
 MODE_OK = 1
@@ -49,11 +63,13 @@ MODE_RECENTLY_LOST = 2
 I32 = torch.int32
 F32 = torch.float32
 
-# The configuration the port runs: the JAX package's defaults with the
-# options that are not ported yet turned off (the JAX package supports this
-# configuration itself; tests/test_e2e_stereo.py runs use_imu=False).
+# The stereo-only configuration of the port's first slice: no IMU, no RANSAC
+# seed and no map maintenance beyond the map-point cull.
 SLICE_CFG = SlamConfig(use_imu=False, ransac_fallback=False, triangulate_mono=False,
                        fuse_neighbors=False, update_point_stats=False, kf_cull_redundancy=0.0)
+# The stereo-inertial odometry configuration the JAX package measures itself
+# on (bench.py); every production flag of SlamConfig() is on.
+BENCH_CFG = SlamConfig(use_imu=True, kf_max_frames=6, ba_iters=3, ba_window=6, lost_timeout=5.0)
 
 
 class TrackState(NamedTuple):
@@ -149,12 +165,31 @@ def _where_tree(c, a, b):
     return type(a)(*[torch.where(c, x, y) for x, y in zip(a, b)])
 
 
+class StepFlags(NamedTuple):
+    """What the host learns from a frame's one device read."""
+
+    lost: bool  # lost beyond the timeout: the active map was reset or archived
+    is_kf: bool  # a keyframe was inserted
+    mode: int  # tracker mode after the step
+    n_kf: int  # keyframe rows in use after the step
+    n_mp: int  # map-point rows in use before the step's insert
+
+
+def _ransac_seed(t: float) -> int:
+    """Seed of a frame's RANSAC draws: 17 and the float32 bit pattern of t."""
+    return (17 << 32) | int(np.float32(t).view(np.uint32))
+
+
 def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, acc, dts,
-                    imu_mask, t, cam: Camera, cfg: SlamConfig, sync):
-    """One SLAM iteration. `sync(tensor)` reads device flags to the host.
-    Returns (MapState, TrackState, FrameOut)."""
+                    imu_mask, t, cam: Camera, cfg: SlamConfig, sync, imu_ok: bool = False,
+                    have_imu_host: bool = True):
+    """One SLAM iteration. `sync(tensor)` reads device flags to the host;
+    `imu_ok` (the IMU is initialized) and `have_imu_host` (the frame has IMU
+    samples) are what the host already knows of `ts.imu_ok` and `imu_mask`.
+    Returns (MapState, TrackState, FrameOut, StepFlags)."""
     dev = ts.q.device
     featL, u_r, depth, has_depth, points_body = _frontend(left_u8, right_u8, cam, cfg)
+    t_host = float(t)
     t = torch.as_tensor(t, dtype=F32, device=dev)
     K = st.kf_valid.shape[0]
 
@@ -187,11 +222,36 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
     valid = matched >= 0
     enough = n_matches >= cfg.min_track_inliers
 
-    res = pose_optimize(q_pred, p_pred, cam, mp_w, featL.uv,
-                        torch.where(valid, u_r, torch.full_like(u_r, -1.0)), featL.octave, valid)
-    v_vis_solve = torch.where(dt_frame > 1e-6, (res.p - ts.p) / torch.clamp(dt_frame, min=1e-6),
-                              ts.v)
-    q_new, p_new, v_new, inliers, n_inl = res.q, res.p, v_vis_solve, res.inliers, res.n_inliers
+    # no-prior robust pose: when projection matching under-filled, the
+    # motion/IMU prior is suspect, so the solve is seeded from a batched
+    # 3D-3D RANSAC over the fallback matches instead
+    q_seed, p_seed = q_pred, p_pred
+    if cfg.ransac_fallback:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(_ransac_seed(t_host))
+        q_h, p_h, _, n_h = robust_pose_3d3d(mp_w, points_body, valid & has_depth, cam.bf, cam.fx,
+                                            generator=gen, n_hyp=cfg.ransac_hyps)
+        seeded = use_fallback & (n_h >= cfg.min_track_inliers)
+        q_seed = torch.where(seeded, q_h, q_pred)
+        p_seed = torch.where(seeded, p_h, p_pred)
+
+    ur_obs = torch.where(valid, u_r, torch.full_like(u_r, -1.0))
+    if imu_ok and have_imu_host:
+        # while within imu_trust_recovery_s of the last tracking failure the
+        # dead-reckoned prior is suspect: vision leads (cap 10), steady
+        # tracking gets the full IMU edge (30)
+        kf = ts.last_kf.long().clamp(0, K - 1)
+        recovering = (t - ts.last_lost_t) < cfg.imu_trust_recovery_s
+        cap = torch.where(recovering, torch.full_like(t, 10.0), torch.full_like(t, 30.0))
+        q_new, p_new, v_new, _, _, inliers, n_inl = pose_inertial_optimize(
+            q_seed, p_seed, v_pred, ts.bg, ts.ba, cam, mp_w, featL.uv, ur_obs, featL.octave,
+            valid, ts.kf_preint, st.kf_q[kf], st.kf_p[kf], st.kf_v[kf], st.kf_bg[kf], st.kf_ba[kf],
+            gravity=ts.gravity_w, imu_cap=cap)
+    else:
+        res = pose_optimize(q_seed, p_seed, cam, mp_w, featL.uv, ur_obs, featL.octave, valid)
+        v_new = torch.where(dt_frame > 1e-6, (res.p - ts.p) / torch.clamp(dt_frame, min=1e-6),
+                            ts.v)
+        q_new, p_new, inliers, n_inl = res.q, res.p, res.inliers, res.n_inliers
 
     tracked_ok = enough & (n_inl >= cfg.min_track_inliers)
     q_new = torch.where(tracked_ok, q_new, q_pred)
@@ -237,19 +297,19 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
     v_new = torch.where(want_init, torch.zeros_like(v_new), v_new)
     matched_for_insert = torch.where(want_init, torch.full_like(matched, -1), matched)
     cull_due = ts.kfs_since_cull + 1 >= cfg.cull_every_kfs
-    # local BA runs when the map holds >= 3 keyframes after this insert
-    ba_due = (sm.count_map_keyframes(st, st.active_map) + 1 >= 3) & tracked_ok
+    n_active = sm.count_map_keyframes(st, st.active_map)
+    mode_out = torch.where(want_init & has_room, i32(MODE_OK), mode)
 
-    f_lost, f_kf, f_ba, f_cull = sync(torch.stack([lost_timeout, is_kf, ba_due, cull_due]))
+    f_lost, f_kf, f_cull, f_tracked, n_active_h, mode_h, n_kf_h, n_mp_h = sync(torch.stack(
+        [lost_timeout.to(I32), is_kf.to(I32), cull_due.to(I32), tracked_ok.to(I32), n_active,
+         mode_out, st.n_kf, st.n_mp]))
 
     if f_lost:  # atlas: lost beyond timeout -> reset or new map
-        n_active = sm.count_map_keyframes(st, st.active_map)
         small = sm.reset_active_map(st)
         big = sm.create_new_map(st)
         st = _where_tree(n_active < cfg.min_kfs_keep_map, small, big)
-        if f_kf:
-            f_ba = sync(((sm.count_map_keyframes(st, st.active_map) + 1 >= 3)
-                         & tracked_ok)[None])[0]
+        n_active_h = 0  # either way the active map holds no keyframe now
+    n_in_map = n_active_h + 1  # after this frame's insert
 
     vis, fnd = update_point_counters(st.mp_visible, st.mp_found, vis_ids, vis_ok, matched, inliers)
     st = st._replace(mp_visible=vis, mp_found=fnd)
@@ -259,7 +319,7 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
         motion_dp=torch.where(tracked_ok, quat.rotate(quat.conj(ts.q), p_new - ts.p),
                               ts.motion_dp),
         q=q_new, p=p_new, v=v_new,
-        mode=torch.where(want_init & has_room, i32(MODE_OK), mode),
+        mode=mode_out,
         lost_since=lost_since, last_lost_t=last_lost_t, last_t=t,
     )
 
@@ -273,13 +333,43 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
         q_inl = torch.where(want_init, n_stereo,
                             torch.where(tracked_ok, n_inl, torch.zeros_like(n_inl))).to(I32)
         st = st._replace(kf_inliers=sm.set_row(st.kf_inliers, kf_id, q_inl))
-        if f_ba:
-            prob, ids, valid_w, pt_ids, pt_valid = build_ba_problem(
-                st, kf_id, cfg.ba_window, cfg.ba_points, cfg.ba_fixed)
-            ba = solve_local_ba(prob, cam, iters=cfg.ba_iters)
-            kf_q, kf_p, mp_pos = apply_ba_results(st, ids, valid_w & prob.opt_cam, ba.q, ba.p,
-                                                  pt_ids, pt_valid, ba.Xw)
-            st = st._replace(kf_q=kf_q, kf_p=kf_p, mp_pos=mp_pos)
+        # local BA from the map's third keyframe on, and only for a keyframe
+        # inserted with a visual solve (an observation-less window is
+        # unanchored); visual-inertial temporal-window BA once the IMU is
+        # initialized
+        if n_in_map >= 3 and f_tracked:
+            if imu_ok:
+                prob, ids, valid_w, pt_ids, pt_valid = build_vi_ba_problem(
+                    st, kf_id, cfg.ba_window, cfg.ba_points, ts.gravity_w, cfg.vi_ba_fixed)
+                ba = solve_vi_ba(prob, cam, iters=cfg.ba_iters)
+                kf_q, kf_p, kf_v, kf_bg, kf_ba, mp_pos = apply_vi_ba_results(
+                    st, ids, valid_w & prob.opt_cam, ba.q, ba.p, ba.v, ba.bg, ba.ba, pt_ids,
+                    pt_valid, ba.Xw)
+                st = st._replace(kf_q=kf_q, kf_p=kf_p, kf_v=kf_v, kf_bg=kf_bg, kf_ba=kf_ba,
+                                 mp_pos=mp_pos)
+            else:
+                prob, ids, valid_w, pt_ids, pt_valid = build_ba_problem(
+                    st, kf_id, cfg.ba_window, cfg.ba_points, cfg.ba_fixed)
+                ba = solve_local_ba(prob, cam, iters=cfg.ba_iters)
+                kf_q, kf_p, mp_pos = apply_ba_results(st, ids, valid_w & prob.opt_cam, ba.q, ba.p,
+                                                      pt_ids, pt_valid, ba.Xw)
+                st = st._replace(kf_q=kf_q, kf_p=kf_p, mp_pos=mp_pos)
+        # triangulation of unmatched features, duplicate fusion, and the
+        # medoid descriptor / normal / depth refresh of the touched points
+        if cfg.triangulate_mono and n_in_map >= 2:
+            st, _ = triangulate_with_neighbor(st, kf_id, cam)
+        if cfg.fuse_neighbors and n_in_map >= 3:
+            st = mo.fuse_map_points(st, kf_id, cam)
+        if cfg.update_point_stats and n_in_map >= 2:
+            st = mo.update_point_stats(st, kf_id)
+        # redundancy keyframe culling: up to kf_cull_max_per_insert removals
+        # per insert, the redundancy recomputed after each; a pass without a
+        # candidate writes nothing
+        if cfg.kf_cull_redundancy > 0 and n_in_map >= 7:
+            thresh = cfg.kf_cull_redundancy_vi if imu_ok else cfg.kf_cull_redundancy
+            for _ in range(cfg.kf_cull_max_per_insert):
+                cand = mo.select_cull_candidate(st, kf_id, thresh, cfg.kf_cull_max_gap)
+                st = mo.remove_keyframe(st, cand.clamp(0, K - 1), enable=cand >= 0)
         if f_cull:
             st = sm.cull_map_points(st)
         adopt = ts.imu_ok & tracked_ok
@@ -317,37 +407,30 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
         rel_q=quat.normalize(quat.mul(quat.conj(q_ref), ts.q)),
         rel_p=quat.rotate(quat.conj(q_ref), ts.p - p_ref),
     )
-    return st, ts, out
+    return st, ts, out, StepFlags(bool(f_lost), bool(f_kf), mode_h, n_kf_h + bool(f_kf), n_mp_h)
 
 
 class FusedSlam:
     """Host wrapper around the SLAM step: streams frames, keeps per-frame
-    outputs on the device and reads them at the end.
+    outputs on the device and reads them at the end, and runs the rare
+    host services (IMU initialization and refinement, the capacity check)
+    every `service_every` frames.
 
-    Runs the stereo slice (SLICE_CFG) at chunk=1 on `device`: the CUDA card
-    unless the caller passes another device (device="cpu" runs on the CPU),
-    and a RuntimeError where there is no card. The camera is moved there.
-    Everything else raises NotImplementedError."""
+    Runs at chunk=1 on `device`: the CUDA card unless the caller passes
+    another device (device="cpu" runs on the CPU), and a RuntimeError where
+    there is no card. The camera is moved there. A vocabulary (loop closing),
+    chunk>1 and a map that reaches the compaction margin raise
+    NotImplementedError."""
 
     def __init__(self, cam: Camera, cfg: SlamConfig, vocabulary=None, service_every: int = 8,
                  chunk: int = 1, loop_cfg=None, device=None):
         refused = []
-        if cfg.use_imu:
-            refused.append("use_imu=True (IMU initialization and visual-inertial BA)")
-        for flag in ("ransac_fallback", "triangulate_mono", "fuse_neighbors",
-                     "update_point_stats"):
-            if getattr(cfg, flag):
-                refused.append(f"{flag}=True")
-        if cfg.kf_cull_redundancy > 0:
-            refused.append("kf_cull_redundancy>0 (keyframe culling)")
         if vocabulary is not None or loop_cfg is not None:
             refused.append("a vocabulary (loop closing)")
         if chunk != 1:
             refused.append("chunk>1 (batched dispatch)")
         if refused:
-            raise NotImplementedError(
-                "orbslam3_tpu_torch runs the stereo slice only (models/fused.py::SLICE_CFG); "
-                "not ported yet: " + ", ".join(refused))
+            raise NotImplementedError("orbslam3_tpu_torch: not ported yet: " + ", ".join(refused))
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -364,10 +447,31 @@ class FusedSlam:
         self.outs: list = []  # (t, FrameOut), device tensors
         self.service_every = service_every
         self._frames = 0
-        # host-side upper bounds on row usage (no device reads), resynced to
-        # the true counts when a capacity check reads them
+        self._last_t = 0.0
+        self.imu_initialized = False
+        # host mirrors of device counters, exact after every frame (they come
+        # with the frame's flag read): rows in use, and upper bounds on them
+        # for the capacity check
+        self._n_kf = 0
         self._kf_ub = 0
         self._mp_ub = 0
+        # IMU-init refinement phases: re-run the gravity / bias solve as the
+        # map matures, with priors phased out by map age
+        self._imu_init_time: float | None = None
+        self._imu_phase = 0  # 0 uninit, then one per _REFINE_PHASES entry
+        self._imu_init_frame: int | None = None
+        self.imu_refines = 0
+        self.bad_imu_resets = 0
+        # one-shot gravity/bias refine requested by a loop correction (the
+        # loop closer sets it; nothing in this package does yet)
+        self._refine_request = False
+        self._refine_attempt_round = -99
+        # tracker mode as of the previous service round (the JAX package reads
+        # it one round late): time-phased refines are deferred while not OK
+        self._last_mode_snap = MODE_OK
+        self._mode_inflight: int | None = None
+        self._mode = MODE_NOT_INIT
+        self._service_round = 0
         self.host_syncs = 0  # explicit device->host reads (see _sync)
         self.timing: dict[str, list] = {}
 
@@ -389,7 +493,7 @@ class FusedSlam:
         """Per-stage host wall time: {stage: {total_s, calls, mean_ms}}.
         The device runs ahead of the host, so device time lands in the
         stage that next waits for it ("step", which holds the per-frame
-        flag read)."""
+        flag read; "imu_init" and "imu_refine" hold their own reads)."""
         return {
             k: {"total_s": round(v[0], 4), "calls": v[1],
                 "mean_ms": round(1e3 * v[0] / max(v[1], 1), 3)}
@@ -408,15 +512,23 @@ class FusedSlam:
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (l_u8, r_u8, g, a, d, m)]
         self._toc("upload", t0)
         t0 = self._tic()
-        self.map, self.ts, out = _slam_step_core(self.map, self.ts, *args, np.float32(t),
-                                                 self.cam, self.cfg, self._sync)
+        self.map, self.ts, out, flags = _slam_step_core(
+            self.map, self.ts, *args, np.float32(t), self.cam, self.cfg, self._sync,
+            imu_ok=self.imu_initialized, have_imu_host=bool(m.any()))
         self._toc("step", t0)
         self.outs.append((t, out))
         self._frames += 1
-        # worst-case rows a frame can add
-        self._kf_ub += 1
-        self._mp_ub += self.cfg.new_mp_budget + 128
-        if self._compact_due() and self._frames % self.service_every == 0:
+        self._last_t = float(t)
+        self._mode = flags.mode
+        self._n_kf = flags.n_kf
+        # rows in use: exact for keyframes; a keyframe adds at most the
+        # stereo spawn budget plus the triangulated points
+        self._kf_ub = flags.n_kf
+        self._mp_ub = flags.n_mp + (self.cfg.new_mp_budget + 128) * flags.is_kf
+        # host services only while something host-side remains to do
+        need_services = ((self.cfg.use_imu and not self.imu_initialized)
+                         or self._imu_refine_due() or self._compact_due())
+        if need_services and self._frames % self.service_every == 0:
             t0 = self._tic()
             self._host_services()
             self._toc("host_services", t0)
@@ -428,7 +540,22 @@ class FusedSlam:
                 or self._mp_ub >= cap.max_mp - 2 * self.cfg.new_mp_budget)
 
     def _host_services(self):
-        """The slice's only host service: the capacity check."""
+        """Rare host-side work: IMU initialization until it succeeds, then
+        the time-phased refinements, and the capacity check."""
+        cfg = self.cfg
+        self._service_round += 1
+        snap_mode, self._mode_inflight = self._mode_inflight, self._mode
+        if snap_mode is not None:
+            self._last_mode_snap = snap_mode
+        if cfg.use_imu and not self.imu_initialized:
+            if self._n_kf >= cfg.imu_init_kfs:
+                t0 = self._tic()
+                self._try_imu_init(self._n_kf)
+                self._toc("imu_init", t0)
+        elif self._imu_refine_due():
+            t0 = self._tic()
+            self._imu_refine()
+            self._toc("imu_refine", t0)
         t0 = self._tic()
         self._maybe_compact()
         self._toc("compaction", t0)
@@ -448,14 +575,180 @@ class FusedSlam:
         self._kf_ub = n_kf
         self._mp_ub = n_mp
 
+    # ---------------------------------------------------------------- IMU
+    def _fetch_kf_table(self, n_kf: int) -> dict:
+        """The keyframe columns an IMU init or refine attempt looks at, for
+        rows [0, n_kf), in one device-to-host copy (float64 holds every
+        int32 and float32 exactly)."""
+        m = self.map
+        f64 = torch.float64
+        cols = [m.kf_valid, m.kf_map_id, m.kf_inliers, m.kf_time, m.kf_preint.dt]
+        table = torch.cat([torch.stack([c[:n_kf].to(f64) for c in cols], dim=1),
+                           m.kf_p[:n_kf].to(f64), m.active_map.to(f64).expand(n_kf, 1)], dim=1)
+        self.host_syncs += 1
+        tab = table.cpu().numpy()
+        return dict(valid=tab[:, 0] > 0, map_id=tab[:, 1].astype(np.int64),
+                    inliers=tab[:, 2].astype(np.int64), time=tab[:, 3].astype(np.float32),
+                    dt=tab[:, 4].astype(np.float32), p=tab[:, 5:8].astype(np.float32),
+                    active=int(tab[0, 8]))
+
+    def _imu_window(self, ids: list, dt):
+        """The fixed 16-row window of an inertial_init call: `ids` (at most
+        16 keyframe rows, oldest first) padded in front by repeating the
+        oldest row, with the padding's edges masked. Returns None when fewer
+        than len(ids) - 2 edges carry a preintegration, else
+        (idx tensor (16,), pad, PreintState (15,), edge_valid (15,))."""
+        W = len(ids)
+        pad = 16 - W
+        ids = [ids[0]] * pad + ids
+        edge_valid = (dt[ids[1:]] > 1e-4) & (np.arange(15) >= pad)
+        if int(edge_valid.sum()) < W - 2:
+            return None
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        preints = pre.PreintState(*[a[idx[1:]] for a in self.map.kf_preint])
+        return idx, pad, preints, torch.from_numpy(edge_valid).to(self.device)
+
+    def _try_imu_init(self, n_kf: int):
+        cfg = self.cfg
+        tab = self._fetch_kf_table(n_kf)
+        in_map = [k for k in range(n_kf) if tab["valid"][k] and tab["map_id"][k] == tab["active"]]
+        if len(in_map) < cfg.imu_init_kfs:
+            return
+        ids = in_map[-16:]
+        if float(tab["time"][ids[-1]] - tab["time"][ids[0]]) < cfg.imu_init_min_time:
+            return
+        # sufficient-motion guard: a static camera cannot observe gravity.
+        # After bad_imu_timeout with less than bad_imu_min_motion of
+        # displacement, reset the map rather than poison the init
+        ps_w = tab["p"][in_map]
+        motion = float(np.linalg.norm(ps_w - ps_w[0], axis=1).max())
+        full_span = float(tab["time"][in_map[-1]] - tab["time"][in_map[0]])
+        if motion < cfg.bad_imu_min_motion:
+            if full_span >= cfg.bad_imu_timeout:
+                self._reset_bad_imu()
+            return
+        win = self._imu_window(ids, tab["dt"])
+        if win is None:
+            return
+        idx, pad, preints, edge_valid = win
+        res = inertial_init(self.map.kf_q[idx], self.map.kf_p[idx], preints, edge_valid)
+        g_norm, cost0, cost1 = self._sync(torch.stack(
+            [torch.linalg.norm(res.gravity_w), res.cost0, res.cost1]))
+        if not (8.5 < g_norm < 11.0) or not cost1 < cost0:
+            return
+        # only the real rows are written (the padding repeats a row)
+        idx_r = idx[pad:]
+        W = idx_r.shape[0]
+        self.map = self.map._replace(
+            kf_v=self.map.kf_v.index_copy(0, idx_r, res.vels[pad:]),
+            kf_bg=self.map.kf_bg.index_copy(0, idx_r, res.bias_g.expand(W, 3)),
+            kf_ba=self.map.kf_ba.index_copy(0, idx_r, res.bias_a.expand(W, 3)))
+        self.ts = self.ts._replace(
+            gravity_w=res.gravity_w, bg=res.bias_g, ba=res.bias_a, v=res.vels[-1],
+            imu_ok=torch.ones((), dtype=torch.bool, device=self.device))
+        self.imu_initialized = True
+        self._imu_phase = 1
+        self._imu_init_time = self._last_t
+        self._imu_init_frame = self._frames - 1
+
+    # refinement thresholds [s since the first init] and prior scales
+    _REFINE_PHASES = ((1, 5.0, 0.3), (2, 15.0, 0.02), (3, 30.0, 0.02))
+
+    def _imu_refine_due(self) -> bool:
+        if not self.imu_initialized or self._imu_init_time is None:
+            return False
+        if self._refine_request:
+            # an armed request retries every 4th round: its guards need
+            # seconds of new healthy keyframes to start passing
+            return self._service_round - self._refine_attempt_round >= 4
+        if self._last_mode_snap != MODE_OK:
+            return False  # defer: the window's poses are dead-reckoned or drifting
+        age = self._last_t - self._imu_init_time
+        return any(self._imu_phase == phase and age >= after
+                   for phase, after, _ in self._REFINE_PHASES)
+
+    def _imu_refine(self):
+        """Re-estimate the gravity direction and the biases against the
+        matured, VI-BA-polished keyframe poses."""
+        self._refine_attempt_round = self._service_round
+        is_request = self._refine_request
+        if is_request:
+            scale = 0.1  # after a loop correction: a moderate prior
+        else:
+            scale = {p: s for p, _, s in self._REFINE_PHASES}[self._imu_phase]
+            self._imu_phase += 1  # one attempt per phase either way
+        cfg = self.cfg
+        n_kf = self._n_kf
+        tab = self._fetch_kf_table(n_kf)
+        all_in_map = [k for k in range(n_kf)
+                      if tab["valid"][k] and tab["map_id"][k] == tab["active"]]
+        # the trailing contiguous healthy run only: a dead-reckoned
+        # keyframe's pose carries no gravity information, and contiguity
+        # keeps the stored preintegration edges aligned with the pose pairs
+        in_map = []
+        for k in reversed(all_in_map):
+            if tab["inliers"][k] < 30:
+                break
+            in_map.append(k)
+        in_map.reverse()
+        if len(in_map) < cfg.imu_init_kfs:
+            return  # a pending request stays armed until enough healthy keyframes
+        # observability guard: gravity needs a window of real duration
+        if float(tab["time"][in_map[-1]] - tab["time"][in_map[max(-len(in_map), -16)]]) < 3.0:
+            return
+        if is_request:
+            self._refine_request = False
+        win = self._imu_window(in_map[-16:], tab["dt"])
+        if win is None:
+            return
+        idx, pad, preints, edge_valid = win
+        res = inertial_init(self.map.kf_q[idx], self.map.kf_p[idx], preints, edge_valid,
+                            prior_scale=scale)
+        out = self._sync(torch.cat([res.gravity_w, self.ts.gravity_w,
+                                    torch.stack([res.cost0, res.cost1])]))
+        g_new, g_old, (cost0, cost1) = np.float32(out[0:3]), np.float32(out[3:6]), out[6:8]
+        g_norm = float(np.linalg.norm(g_new))
+        if not (9.0 < g_norm < 10.6) or not cost1 < cost0:
+            return
+        # direction-jump guard: once initialized the gravity error is a few
+        # degrees at most; a large swing is a degenerate window's noise
+        cosang = float(np.dot(g_old, g_new)
+                       / max(np.linalg.norm(g_old) * np.linalg.norm(g_new), 1e-9))
+        if cosang < np.cos(np.radians(10.0)):
+            return
+        # accept: gravity and biases (velocities stay VI-BA's)
+        self.ts = self.ts._replace(gravity_w=res.gravity_w, bg=res.bias_g, ba=res.bias_a)
+        idx_r = idx[pad:]
+        W = idx_r.shape[0]
+        self.map = self.map._replace(
+            kf_bg=self.map.kf_bg.index_copy(0, idx_r, res.bias_g.expand(W, 3)),
+            kf_ba=self.map.kf_ba.index_copy(0, idx_r, res.bias_a.expand(W, 3)))
+        self.imu_refines += 1
+
+    def _reset_bad_imu(self):
+        """Static-start recovery: drop the poisoned map, restart tracking."""
+        dev = self.device
+        z3 = torch.zeros(3, dtype=F32, device=dev)
+        self.map = sm.reset_active_map(self.map)
+        self.ts = self.ts._replace(
+            mode=torch.tensor(MODE_NOT_INIT, dtype=I32, device=dev), v=z3, bg=z3.clone(),
+            ba=z3.clone(), kf_preint=pre.PreintState.identity(device=dev),
+            frames_since_kf=torch.tensor(0, dtype=I32, device=dev),
+            lost_since=torch.tensor(-1.0, dtype=F32, device=dev))
+        self.bad_imu_resets += 1
+        self._imu_phase = 0
+        self._imu_init_time = None
+
     def flush(self):
         """No buffered frames at chunk=1."""
         return None
 
     def finalize(self):
-        """End of sequence: nothing is buffered and no host service remains
-        in the slice; waits for the device."""
+        """End of sequence: a last service round if the IMU is still to be
+        initialized, then wait for the device."""
         self.flush()
+        if self.cfg.use_imu and not self.imu_initialized:
+            self._host_services()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

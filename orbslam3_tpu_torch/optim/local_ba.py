@@ -14,6 +14,9 @@ damped step, so racing atomic adds (index_add on a CUDA tensor) made two
 runs on the same frames end millimetres apart after one BA and diverge
 over a sequence. Camera blocks are sums over each camera's contiguous run
 of edges; point blocks go through `_scatter_sum`.
+
+`VisualEdges` holds the visual half (residuals, cost, the reduced camera
+system); optim/vi_ba.py builds its 15-dof system on the same object.
 """
 from __future__ import annotations
 
@@ -67,95 +70,107 @@ def _edge_residual(xi_c, dxp, q0, p0, X0, uv, ur, cam):
     return _visual_residual(torch.zeros_like(xi_c), q, p, cam, X0 + dxp, uv, ur)
 
 
-def solve_local_ba(prob: BAProblem, cam: Camera, iters: int = 10,
-                   init_damping: float = 1e-4) -> BAResult:
-    C, N = prob.obs_pt.shape
-    P = prob.Xw.shape[0]
-    E = C * N
-    dev = prob.q.device
-    f32 = torch.float32
+class VisualEdges:
+    """The visual edges of a window problem (BAProblem or VIBAProblem: C
+    cameras x N features, P points) and what both solvers build from them:
+    residuals, the truncated Huber cost, and the camera system reduced over
+    the points by a Schur complement. Every sum runs in a fixed order."""
 
-    e_cam = torch.arange(C, device=dev).repeat_interleave(N)
-    e_pt = prob.obs_pt.reshape(-1).long()
-    e_uv = prob.obs_uv.reshape(E, 2)
-    e_ur = prob.obs_ur.reshape(E)
-    e_oct = prob.obs_oct.reshape(E)
-    e_valid = (e_pt >= 0) & prob.cam_valid[e_cam] & prob.pt_valid[e_pt.clamp(0, P - 1)]
-    e_pt_safe = torch.where(e_valid, e_pt, torch.zeros_like(e_pt))
-    e_validf = e_valid.to(f32)
-    s2inv = robust.octave_sigma2_inv(e_oct)
-    delta2 = robust.chi2_gate(e_ur)
-    zero6 = torch.zeros(6, dtype=f32, device=dev)
-    zero3 = torch.zeros(3, dtype=f32, device=dev)
+    def __init__(self, prob, cam: Camera):
+        C, N = prob.obs_pt.shape
+        P = prob.Xw.shape[0]
+        E = C * N
+        dev = prob.q.device
+        f32 = torch.float32
+        self.C, self.N, self.P = C, N, P
+        self.e_cam = torch.arange(C, device=dev).repeat_interleave(N)
+        e_pt = prob.obs_pt.reshape(-1).long()
+        self.e_uv = prob.obs_uv.reshape(E, 2)
+        self.e_ur = prob.obs_ur.reshape(E)
+        self.e_valid = ((e_pt >= 0) & prob.cam_valid[self.e_cam]
+                        & prob.pt_valid[e_pt.clamp(0, P - 1)])
+        self.e_pt_safe = torch.where(self.e_valid, e_pt, torch.zeros_like(e_pt))
+        self.e_validf = self.e_valid.to(f32)
+        self.s2inv = robust.octave_sigma2_inv(prob.obs_oct.reshape(E))
+        self.delta2 = robust.chi2_gate(self.e_ur)
+        self.zero6 = torch.zeros(6, dtype=f32, device=dev)
+        self.zero3 = torch.zeros(3, dtype=f32, device=dev)
+        self.opt_e = prob.opt_cam[self.e_cam].to(f32)[:, None, None]
+        self.eye3 = torch.eye(3, dtype=f32, device=dev)
+        self.cam_ar = torch.arange(C, device=dev)
+        self.pt_has_obs = _scatter_sum(P, self.e_pt_safe, self.e_validf) > 0
+        self.upd_pt = (prob.pt_valid & self.pt_has_obs)[:, None]
 
-    res_v = vmap(lambda a, b, q0, p0, X0, uv, ur: _edge_residual(a, b, q0, p0, X0, uv, ur, cam),
-                 in_dims=(None, None, 0, 0, 0, 0, 0))
+        self._res = vmap(
+            lambda a, b, q0, p0, X0, uv, ur: _edge_residual(a, b, q0, p0, X0, uv, ur, cam),
+            in_dims=(None, None, 0, 0, 0, 0, 0))
 
-    def both(a, b, q0, p0, X0, uv, ur):
-        r = _edge_residual(a, b, q0, p0, X0, uv, ur, cam)
-        return r, r
+        def both(a, b, q0, p0, X0, uv, ur):
+            r = _edge_residual(a, b, q0, p0, X0, uv, ur, cam)
+            return r, r
 
-    jac_v = vmap(jacfwd(both, argnums=(0, 1), has_aux=True), in_dims=(None, None, 0, 0, 0, 0, 0))
+        self._jac = vmap(jacfwd(both, argnums=(0, 1), has_aux=True),
+                         in_dims=(None, None, 0, 0, 0, 0, 0))
 
-    def residuals(q, p, Xw):
-        return res_v(zero6, zero3, q[e_cam], p[e_cam], Xw[e_pt_safe], e_uv, e_ur)
+    def cutoff_mults(self, iters: int):
+        return torch.clamp(1e4 * 0.3 ** torch.arange(iters, dtype=torch.float32,
+                                                     device=self.zero6.device), min=16.0)
 
-    cutoff_mults = torch.clamp(
-        1e4 * 0.3 ** torch.arange(iters, dtype=f32, device=dev), min=16.0)
+    def residuals(self, q, p, Xw):
+        return self._res(self.zero6, self.zero3, q[self.e_cam], p[self.e_cam], Xw[self.e_pt_safe],
+                         self.e_uv, self.e_ur)
 
-    def hub_cost(chi2, hub_cap):
+    def chi2(self, r):
+        return torch.sum(r * r, -1) * self.s2inv
+
+    def hub_cost(self, chi2, hub_cap):
         """Truncated Huber cost: constant beyond the cutoff, so outliers
         cannot steer the accept/reject test."""
-        hub = torch.where(chi2 <= delta2, chi2,
-                          2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=1e-12)) - delta2)
-        return torch.sum(torch.minimum(hub, hub_cap) * e_validf)
+        d2 = self.delta2
+        hub = torch.where(chi2 <= d2, chi2,
+                          2.0 * torch.sqrt(d2 * torch.clamp(chi2, min=1e-12)) - d2)
+        return torch.sum(torch.minimum(hub, hub_cap) * self.e_validf)
 
-    def cost_of(q, p, Xw, cutoff_mult):
-        r = residuals(q, p, Xw)
-        hub_cap = 2.0 * torch.sqrt(delta2 * cutoff_mult * delta2) - delta2
-        return hub_cost(torch.sum(r * r, -1) * s2inv, hub_cap)
+    def cost(self, q, p, Xw, cutoff_mult):
+        d2 = self.delta2
+        return self.hub_cost(self.chi2(self.residuals(q, p, Xw)),
+                             2.0 * torch.sqrt(d2 * cutoff_mult * d2) - d2)
 
-    free = (prob.opt_cam & prob.cam_valid).to(f32)
-    free6 = free.repeat_interleave(6)
-    opt_e = prob.opt_cam[e_cam].to(f32)[:, None, None]
-    eye3 = torch.eye(3, dtype=f32, device=dev)
-    eyeC = torch.eye(C * 6, dtype=f32, device=dev)
-    cam_ar = torch.arange(C, device=dev)
-    pt_has_obs = _scatter_sum(P, e_pt_safe, e_validf) > 0
-    upd_pt = (prob.pt_valid & pt_has_obs)[:, None]
-
-    q, p, Xw = prob.q, prob.p, prob.Xw
-    damping = torch.tensor(init_damping, dtype=f32, device=dev)
-    cost = cost_of(q, p, Xw, torch.tensor(16.0, dtype=f32, device=dev))
-    cost0 = cost
-    for it in range(iters):
-        cutoff_mult = cutoff_mults[it]
-        cutoff2 = cutoff_mult * delta2
-        qe, pe, Xe = q[e_cam], p[e_cam], Xw[e_pt_safe]
-        (Jc, Jp), r = jac_v(zero6, zero3, qe, pe, Xe, e_uv, e_ur)  # (E,3,6), (E,3,3)
-        chi2 = torch.sum(r * r, -1) * s2inv
-        old_cost = hub_cost(chi2, 2.0 * torch.sqrt(delta2 * cutoff2) - delta2)
-        w = (robust.huber_weight(chi2, delta2) * (chi2 <= cutoff2).to(f32) * s2inv * e_validf)
-        Jc = Jc * opt_e
+    def reduced_system(self, q, p, Xw, damping, cutoff_mult):
+        """One linearization at (q, p, Xw). Returns (S (6C, 6C), b (6C,),
+        the cost at this state under this cutoff, and a function mapping the
+        camera step dxc (6C,) to the point step (P, 3))."""
+        C, N, P = self.C, self.N, self.P
+        f32 = torch.float32
+        cutoff2 = cutoff_mult * self.delta2
+        (Jc, Jp), r = self._jac(self.zero6, self.zero3, q[self.e_cam], p[self.e_cam],
+                                Xw[self.e_pt_safe], self.e_uv, self.e_ur)  # (E,3,6), (E,3,3)
+        chi2 = self.chi2(r)
+        old_cost = self.hub_cost(chi2, 2.0 * torch.sqrt(self.delta2 * cutoff2) - self.delta2)
+        w = (robust.huber_weight(chi2, self.delta2) * (chi2 <= cutoff2).to(f32) * self.s2inv
+             * self.e_validf)
+        Jc = Jc * self.opt_e
         Jc_w = Jc * w[:, None, None]
         Jp_w = Jp * w[:, None, None]
 
         # edge e belongs to camera e // N
         Hcc = torch.einsum("eij,eik->ejk", Jc_w, Jc).reshape(C, N, 6, 6).sum(1)
         bc = torch.einsum("eij,ei->ej", Jc_w, r).reshape(C, N, 6).sum(1)
-        Hpp = _scatter_sum(P, e_pt_safe, torch.einsum("eij,eik->ejk", Jp_w, Jp))
-        bp = _scatter_sum(P, e_pt_safe, torch.einsum("eij,ei->ej", Jp_w, r))
+        Hpp = _scatter_sum(P, self.e_pt_safe, torch.einsum("eij,eik->ejk", Jp_w, Jp))
+        bp = _scatter_sum(P, self.e_pt_safe, torch.einsum("eij,ei->ej", Jp_w, r))
         Wcp = torch.einsum("eij,eik->ejk", Jc_w, Jp)  # (E, 6, 3)
-        Wstack = _scatter_sum(P * C, e_pt_safe * C + e_cam, Wcp).reshape(P, C * 6, 3)
+        Wstack = _scatter_sum(P * C, self.e_pt_safe * C + self.e_cam, Wcp).reshape(P, C * 6, 3)
 
+        # scale-relative damping keeps rank-deficient point blocks invertible in float32
         lam = damping
         tr = (Hpp[:, 0, 0] + Hpp[:, 1, 1] + Hpp[:, 2, 2]) / 3.0
-        Hpp_d = Hpp + eye3[None] * (lam + torch.clamp(lam, min=1e-5) * tr + 1e-6)[:, None, None]
+        Hpp_d = Hpp + self.eye3[None] * (lam + torch.clamp(lam, min=1e-5) * tr
+                                         + 1e-6)[:, None, None]
         Hpp_inv = torch.linalg.inv_ex(Hpp_d)[0]
-        Hpp_inv = torch.where(pt_has_obs[:, None, None], Hpp_inv, torch.zeros_like(Hpp_inv))
+        Hpp_inv = torch.where(self.pt_has_obs[:, None, None], Hpp_inv, torch.zeros_like(Hpp_inv))
 
-        Hcc_full = torch.zeros((C, 6, C, 6), dtype=f32, device=dev)
-        Hcc_full[cam_ar, :, cam_ar, :] = Hcc
+        Hcc_full = torch.zeros((C, 6, C, 6), dtype=f32, device=q.device)
+        Hcc_full[self.cam_ar, :, self.cam_ar, :] = Hcc
         Hcc_full = Hcc_full.reshape(C * 6, C * 6)
         WH = Wstack @ Hpp_inv  # (P, 6C, 3)
         WHW = WH.permute(1, 0, 2).reshape(C * 6, P * 3) @ \
@@ -163,19 +178,44 @@ def solve_local_ba(prob: BAProblem, cam: Camera, iters: int = 10,
         S = Hcc_full - WHW
         b_red = bc.reshape(C * 6) - torch.einsum("pik,pk->i", WH, bp)
 
+        def point_step(dxc):
+            Wt_dxc = torch.einsum("pik,i->pk", Wstack, dxc)
+            return -torch.einsum("pkl,pl->pk", Hpp_inv, bp + Wt_dxc)
+
+        return S, b_red, old_cost, point_step
+
+
+def solve_local_ba(prob: BAProblem, cam: Camera, iters: int = 10,
+                   init_damping: float = 1e-4) -> BAResult:
+    C, N = prob.obs_pt.shape
+    dev = prob.q.device
+    f32 = torch.float32
+    ve = VisualEdges(prob, cam)
+    cutoff_mults = ve.cutoff_mults(iters)
+
+    free = (prob.opt_cam & prob.cam_valid).to(f32)
+    free6 = free.repeat_interleave(6)
+    eyeC = torch.eye(C * 6, dtype=f32, device=dev)
+
+    q, p, Xw = prob.q, prob.p, prob.Xw
+    damping = torch.tensor(init_damping, dtype=f32, device=dev)
+    cost = ve.cost(q, p, Xw, torch.tensor(16.0, dtype=f32, device=dev))
+    cost0 = cost
+    for it in range(iters):
+        cutoff_mult = cutoff_mults[it]
+        S, b_red, old_cost, point_step = ve.reduced_system(q, p, Xw, damping, cutoff_mult)
+
         S = S * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
-        S = S + eyeC * lam
+        S = S + eyeC * damping
         b_red = b_red * free6
         d = torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-8))
         S_n = S / d[:, None] / d[None, :]
         dxc = -torch.linalg.solve_ex(S_n, (b_red / d)[:, None])[0][:, 0] / d
-
-        Wt_dxc = torch.einsum("pik,i->pk", Wstack, dxc)
-        dxp = -torch.einsum("pkl,pl->pk", Hpp_inv, bp + Wt_dxc)
+        dxp = point_step(dxc)
 
         q_new, p_new = _retract(q, p, dxc.reshape(C, 6))
-        Xw_new = torch.where(upd_pt, Xw + dxp, Xw)
-        new_cost = cost_of(q_new, p_new, Xw_new, cutoff_mult)
+        Xw_new = torch.where(ve.upd_pt, Xw + dxp, Xw)
+        new_cost = ve.cost(q_new, p_new, Xw_new, cutoff_mult)
         accept = new_cost < old_cost
         q = torch.where(accept, q_new, q)
         p = torch.where(accept, p_new, p)
@@ -183,7 +223,5 @@ def solve_local_ba(prob: BAProblem, cam: Camera, iters: int = 10,
         damping = torch.where(accept, torch.clamp(damping * 0.5, min=1e-6), damping * 4.0)
         cost = torch.where(accept, new_cost, old_cost)
 
-    r = residuals(q, p, Xw)
-    chi2 = torch.sum(r * r, -1) * s2inv
-    inl = (chi2 <= delta2) & e_valid
+    inl = (ve.chi2(ve.residuals(q, p, Xw)) <= ve.delta2) & ve.e_valid
     return BAResult(q, p, Xw, cost0, cost, inl.reshape(C, N))

@@ -42,5 +42,7 @@ def test_explicit_cpu_runs_a_frame(world, device):
 
 def test_unported_options_are_refused_before_the_device_is_picked(world, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(NotImplementedError, match="use_imu"):
-        FusedSlam(world.cam, SLICE_CFG._replace(use_imu=True))
+    with pytest.raises(NotImplementedError, match="chunk"):
+        FusedSlam(world.cam, SLICE_CFG, chunk=4)
+    with pytest.raises(NotImplementedError, match="vocabulary"):
+        FusedSlam(world.cam, SLICE_CFG._replace(use_imu=True), vocabulary=object())

@@ -80,16 +80,6 @@ def test_slice_trajectory(runs):
     assert ate < 0.05 and ok_frac > 0.9, (ate, ok_frac)
 
 
-@pytest.mark.parametrize("bad", [dict(use_imu=True), dict(ransac_fallback=True),
-                                 dict(triangulate_mono=True), dict(fuse_neighbors=True),
-                                 dict(update_point_stats=True), dict(kf_cull_redundancy=0.9)],
-                         ids=lambda d: next(iter(d)))
-def test_slice_refuses_unported_options(bad):
-    cam = port_camera(SyntheticWorld(SyntheticConfig(**SMALL_WORLD)).cam)
-    with pytest.raises(NotImplementedError, match=next(iter(bad))):
-        tfused.FusedSlam(cam, tfused.SLICE_CFG._replace(**bad), device="cpu")
-
-
 @pytest.mark.parametrize("kwargs", [dict(vocabulary=object()), dict(chunk=4)],
                          ids=["vocabulary", "chunk"])
 def test_slice_refuses_unported_wrapper_options(kwargs):

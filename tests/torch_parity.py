@@ -4,6 +4,11 @@ import torch
 
 from orbslam3_tpu_torch.frontend.camera import Camera as TCamera
 
+# The port's eager steps are thousands of small ops: more intra-op threads
+# gain nothing at these sizes, and several test workers on one machine, each
+# with a full thread pool spinning at its barriers, slow each other many-fold.
+torch.set_num_threads(1)
+
 # bench.py::HARD_WORLD
 HARD_WORLD = dict(texture="textured", exposure_drift=0.3, image_noise_std=3.0,
                   salt_pepper_frac=0.002, motion_blur_samples=3, exposure_time=0.02)
@@ -39,3 +44,47 @@ def assert_tree_close(t, j, rtol=1e-5, atol=1e-5, path="state"):
         np.testing.assert_allclose(tv, jv, rtol=rtol, atol=atol, err_msg=path)
     else:
         np.testing.assert_array_equal(tv, jv, err_msg=path)
+
+
+def grow_jax_map(n_kf, cap, cfg, p_local=1024, seed=0):
+    """A JAX MapState (as numpy) of `n_kf` keyframes of the small world,
+    inserted at ground-truth poses perturbed by a few cm, each tracked
+    against the map so far, chained by kf_prev and carrying the
+    preintegrated IMU window since its predecessor and the true velocity.
+    Returns (world, MapState of numpy arrays)."""
+    import jax
+    import jax.numpy as jnp
+
+    from orbslam3_tpu.imu import preintegration as jpre
+    from orbslam3_tpu.io.synthetic import SyntheticConfig, SyntheticWorld
+    from orbslam3_tpu.map import slam_map as jsm
+    from orbslam3_tpu.models import fused as jfused
+    from orbslam3_tpu.models import tracker as jtr
+
+    world = SyntheticWorld(SyntheticConfig(**SMALL_WORLD))
+    fe = jax.jit(jfused._frontend, static_argnames=("cfg",))
+    integrate = jax.jit(jpre.integrate_assoc)
+    rng = np.random.default_rng(seed)
+    st = jsm.empty_map(cap)
+    z3 = jnp.zeros(3)
+    for i in range(n_kf):
+        t = 0.1 * i
+        l, r = world.render_frame(t)
+        featL, u_r, depth, has_depth, pts = fe(jnp.asarray(l.astype(np.uint8)),
+                                               jnp.asarray(r.astype(np.uint8)), world.cam, cfg=cfg)
+        q, p = world.gt_pose(t)
+        p = p + rng.normal(0, 0.02, 3).astype(np.float32) * (i > 0)
+        if i == 0:
+            matched = -jnp.ones(cap.n_feat, jnp.int32)
+            preint = jpre.PreintState.identity()
+        else:
+            matched = jtr.match_local_map(st, world.cam, featL.uv, featL.desc, featL.octave,
+                                          featL.valid, jnp.asarray(q), jnp.asarray(p),
+                                          jtr.TrackConfig(p_local=p_local))[0]
+            preint = integrate(*jpre.pad_imu_window(*world.imu_window(t - 0.1, t), 32), z3, z3)
+        st, _ = jsm.insert_keyframe(st, jnp.float32(t), jnp.asarray(q), jnp.asarray(p),
+                                    jnp.asarray(world.gt_velocity(t)), z3, z3,
+                                    featL.uv, u_r, depth, featL.octave, featL.desc, pts,
+                                    featL.valid, matched, preint, jnp.int32(i - 1),
+                                    new_mp_budget=cfg.new_mp_budget)
+    return world, jax.tree.map(np.asarray, st)

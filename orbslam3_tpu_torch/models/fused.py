@@ -182,13 +182,16 @@ def _ransac_seed(t: float) -> int:
 
 def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, acc, dts,
                     imu_mask, t, cam: Camera, cfg: SlamConfig, sync, imu_ok: bool = False,
-                    have_imu_host: bool = True):
+                    have_imu_host: bool = True, lap=lambda stage: None):
     """One SLAM iteration. `sync(tensor)` reads device flags to the host;
     `imu_ok` (the IMU is initialized) and `have_imu_host` (the frame has IMU
     samples) are what the host already knows of `ts.imu_ok` and `imu_mask`.
+    `lap(stage)` is called at the end of each stage of the step, for a
+    caller that keeps host time by stage.
     Returns (MapState, TrackState, FrameOut, StepFlags)."""
     dev = ts.q.device
     featL, u_r, depth, has_depth, points_body = _frontend(left_u8, right_u8, cam, cfg)
+    lap("frontend")
     t_host = float(t)
     t = torch.as_tensor(t, dtype=F32, device=dev)
     K = st.kf_valid.shape[0]
@@ -209,6 +212,7 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
     q_pred = torch.where(use_imu_pred, q_imu, q_mm)
     p_pred = torch.where(use_imu_pred, p_imu, p_mm)
     v_pred = torch.where(use_imu_pred, v_imu, ts.v)
+    lap("imu_predict")
 
     # ---------------- match + solve
     matched, mp_w, vis_ids, vis_ok = match_local_map(
@@ -221,6 +225,7 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
     n_matches = torch.sum(matched >= 0, dtype=I32)
     valid = matched >= 0
     enough = n_matches >= cfg.min_track_inliers
+    lap("match")
 
     # no-prior robust pose: when projection matching under-filled, the
     # motion/IMU prior is suspect, so the solve is seeded from a batched
@@ -234,6 +239,7 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
         seeded = use_fallback & (n_h >= cfg.min_track_inliers)
         q_seed = torch.where(seeded, q_h, q_pred)
         p_seed = torch.where(seeded, p_h, p_pred)
+        lap("ransac_seed")
 
     ur_obs = torch.where(valid, u_r, torch.full_like(u_r, -1.0))
     if imu_ok and have_imu_host:
@@ -247,11 +253,13 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
             q_seed, p_seed, v_pred, ts.bg, ts.ba, cam, mp_w, featL.uv, ur_obs, featL.octave,
             valid, ts.kf_preint, st.kf_q[kf], st.kf_p[kf], st.kf_v[kf], st.kf_bg[kf], st.kf_ba[kf],
             gravity=ts.gravity_w, imu_cap=cap)
+        lap("pose_solve_vi")
     else:
         res = pose_optimize(q_seed, p_seed, cam, mp_w, featL.uv, ur_obs, featL.octave, valid)
         v_new = torch.where(dt_frame > 1e-6, (res.p - ts.p) / torch.clamp(dt_frame, min=1e-6),
                             ts.v)
         q_new, p_new, inliers, n_inl = res.q, res.p, res.inliers, res.n_inliers
+        lap("pose_solve_visual")
 
     tracked_ok = enough & (n_inl >= cfg.min_track_inliers)
     q_new = torch.where(tracked_ok, q_new, q_pred)
@@ -303,6 +311,7 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
     f_lost, f_kf, f_cull, f_tracked, n_active_h, mode_h, n_kf_h, n_mp_h = sync(torch.stack(
         [lost_timeout.to(I32), is_kf.to(I32), cull_due.to(I32), tracked_ok.to(I32), n_active,
          mode_out, st.n_kf, st.n_mp]))
+    lap("decide_and_flag_read")
 
     if f_lost:  # atlas: lost beyond timeout -> reset or new map
         small = sm.reset_active_map(st)
@@ -333,6 +342,7 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
         q_inl = torch.where(want_init, n_stereo,
                             torch.where(tracked_ok, n_inl, torch.zeros_like(n_inl))).to(I32)
         st = st._replace(kf_inliers=sm.set_row(st.kf_inliers, kf_id, q_inl))
+        lap("kf_insert")
         # local BA from the map's third keyframe on, and only for a keyframe
         # inserted with a visual solve (an observation-less window is
         # unanchored); visual-inertial temporal-window BA once the IMU is
@@ -347,6 +357,7 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
                     pt_valid, ba.Xw)
                 st = st._replace(kf_q=kf_q, kf_p=kf_p, kf_v=kf_v, kf_bg=kf_bg, kf_ba=kf_ba,
                                  mp_pos=mp_pos)
+                lap("vi_ba")
             else:
                 prob, ids, valid_w, pt_ids, pt_valid = build_ba_problem(
                     st, kf_id, cfg.ba_window, cfg.ba_points, cfg.ba_fixed)
@@ -354,14 +365,18 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
                 kf_q, kf_p, mp_pos = apply_ba_results(st, ids, valid_w & prob.opt_cam, ba.q, ba.p,
                                                       pt_ids, pt_valid, ba.Xw)
                 st = st._replace(kf_q=kf_q, kf_p=kf_p, mp_pos=mp_pos)
+                lap("local_ba")
         # triangulation of unmatched features, duplicate fusion, and the
         # medoid descriptor / normal / depth refresh of the touched points
         if cfg.triangulate_mono and n_in_map >= 2:
             st, _ = triangulate_with_neighbor(st, kf_id, cam)
+            lap("triangulate")
         if cfg.fuse_neighbors and n_in_map >= 3:
             st = mo.fuse_map_points(st, kf_id, cam)
+            lap("fuse")
         if cfg.update_point_stats and n_in_map >= 2:
             st = mo.update_point_stats(st, kf_id)
+            lap("point_stats")
         # redundancy keyframe culling: up to kf_cull_max_per_insert removals
         # per insert, the redundancy recomputed after each; a pass without a
         # candidate writes nothing
@@ -370,8 +385,10 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
             for _ in range(cfg.kf_cull_max_per_insert):
                 cand = mo.select_cull_candidate(st, kf_id, thresh, cfg.kf_cull_max_gap)
                 st = mo.remove_keyframe(st, cand.clamp(0, K - 1), enable=cand >= 0)
+            lap("kf_cull")
         if f_cull:
             st = sm.cull_map_points(st)
+            lap("mp_cull")
         adopt = ts.imu_ok & tracked_ok
         kk = kf_id.long()
         new_bg = torch.where(adopt, 0.7 * ts.bg + 0.3 * st.kf_bg[kk], ts.bg)
@@ -407,6 +424,7 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
         rel_q=quat.normalize(quat.mul(quat.conj(q_ref), ts.q)),
         rel_p=quat.rotate(quat.conj(q_ref), ts.p - p_ref),
     )
+    lap("bookkeeping")
     return st, ts, out, StepFlags(bool(f_lost), bool(f_kf), mode_h, n_kf_h + bool(f_kf), n_mp_h)
 
 
@@ -459,7 +477,7 @@ class FusedSlam:
         # map matures, with priors phased out by map age
         self._imu_init_time: float | None = None
         self._imu_phase = 0  # 0 uninit, then one per _REFINE_PHASES entry
-        self._imu_init_frame: int | None = None
+        self.imu_init_frame: int | None = None  # index of the frame it initialized after
         self.imu_refines = 0
         self.bad_imu_resets = 0
         # one-shot gravity/bias refine requested by a loop correction (the
@@ -489,11 +507,22 @@ class FusedSlam:
         cell[0] += time.perf_counter() - t0
         cell[1] += 1
 
+    def _lap(self, stage: str):
+        """End of a stage of the step: its host time since the last lap."""
+        now = time.perf_counter()
+        cell = self.timing.setdefault("step." + stage, [0.0, 0])
+        cell[0] += now - self._lap_t
+        cell[1] += 1
+        self._lap_t = now
+
     def timing_report(self) -> dict:
         """Per-stage host wall time: {stage: {total_s, calls, mean_ms}}.
-        The device runs ahead of the host, so device time lands in the
-        stage that next waits for it ("step", which holds the per-frame
-        flag read; "imu_init" and "imu_refine" hold their own reads)."""
+        "step" is the whole per-frame step and "step.<stage>" its parts in
+        order, each counted from the end of the one before it (their totals
+        add up to it; "step.bookkeeping" is the rest of the step after the
+        last named stage). The device runs ahead of the host, so device time lands in the stage that next waits for it
+        ("step.decide_and_flag_read" holds the per-frame flag read; "imu_init"
+        and "imu_refine" hold their own reads)."""
         return {
             k: {"total_s": round(v[0], 4), "calls": v[1],
                 "mean_ms": round(1e3 * v[0] / max(v[1], 1), 3)}
@@ -511,10 +540,10 @@ class FusedSlam:
         dev = self.device
         args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (l_u8, r_u8, g, a, d, m)]
         self._toc("upload", t0)
-        t0 = self._tic()
+        t0 = self._lap_t = self._tic()
         self.map, self.ts, out, flags = _slam_step_core(
             self.map, self.ts, *args, np.float32(t), self.cam, self.cfg, self._sync,
-            imu_ok=self.imu_initialized, have_imu_host=bool(m.any()))
+            imu_ok=self.imu_initialized, have_imu_host=bool(m.any()), lap=self._lap)
         self._toc("step", t0)
         self.outs.append((t, out))
         self._frames += 1
@@ -649,7 +678,7 @@ class FusedSlam:
         self.imu_initialized = True
         self._imu_phase = 1
         self._imu_init_time = self._last_t
-        self._imu_init_frame = self._frames - 1
+        self.imu_init_frame = self._frames - 1
 
     # refinement thresholds [s since the first init] and prior scales
     _REFINE_PHASES = ((1, 5.0, 0.3), (2, 15.0, 0.02), (3, 30.0, 0.02))
@@ -762,6 +791,11 @@ class FusedSlam:
         outs = FrameOut(*[torch.stack([o[i] for _, o in self.outs]).cpu().numpy()
                           for i in range(len(FrameOut._fields))])
         return ts_, outs
+
+    def frame_outputs(self):
+        """The FrameOut of every processed frame, its fields stacked over the
+        sequence as numpy arrays (None before the first frame)."""
+        return self._flat_outs()[1]
 
     def trajectory_arrays(self, corrected: bool = True):
         """(times, positions, quats). With corrected=True each frame pose is

@@ -116,6 +116,27 @@ def test_vi_slice_host_reads(runs):
     assert "imu_init" in slam.timing_report()
 
 
+def test_vi_slice_stage_times(runs):
+    """timing_report() splits the step into its stages: both pose solves and
+    both BAs ran (before and after the IMU initialized), every keyframe stage
+    ran, and the stages' host times add up to the step's."""
+    slam = runs["torch"]["slam"]
+    rep = slam.timing_report()
+    for stage in ("frontend", "imu_predict", "match", "ransac_seed", "pose_solve_visual",
+                  "pose_solve_vi", "decide_and_flag_read", "kf_insert", "local_ba", "vi_ba",
+                  "triangulate", "fuse", "point_stats", "kf_cull", "bookkeeping"):
+        assert rep["step." + stage]["calls"] > 0, stage
+    n = runs["n"]
+    assert rep["step"]["calls"] == rep["step.frontend"]["calls"] == n
+    assert rep["step.pose_solve_visual"]["calls"] + rep["step.pose_solve_vi"]["calls"] == n
+    assert rep["step.pose_solve_visual"]["calls"] >= runs["torch"]["init_frame"] + 1
+    assert rep["step.kf_insert"]["calls"] == int(runs["torch"]["outs"].is_kf.sum())
+    parts = sum(v[0] for k, v in slam.timing.items() if k.startswith("step."))
+    assert abs(parts - slam.timing["step"][0]) < 1e-3 * n
+    assert slam.imu_init_frame == runs["torch"]["init_frame"]
+    assert slam.frame_outputs().p.shape == (n, 3)
+
+
 @pytest.mark.parametrize("name", ["default", "bench"])
 def test_vi_configs_construct_and_run(name):
     """The production default and bench.py's odometry configuration are

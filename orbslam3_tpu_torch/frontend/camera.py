@@ -64,6 +64,16 @@ class Camera(NamedTuple):
 
         return quat.rotate(self.q_bc.expand(xc.shape[:-1] + (4,)), xc) + self.p_bc
 
+    def project_body(self, xb):
+        """Body-frame points (..., 3) -> (pixels (..., 2), camera depth (...,))."""
+        if self.q_bc is None:
+            xc = xb
+        else:
+            from orbslam3_tpu_torch.geometry import quat
+
+            xc = quat.rotate(quat.conj(self.q_bc).expand(xb.shape[:-1] + (4,)), xb - self.p_bc)
+        return self.project(xc), xc[..., 2]
+
     @property
     def baseline(self):
         return self.bf / self.fx

@@ -32,32 +32,35 @@ def pow12(octave):
 def match_stereo(left: Features, right: Features, cam: Camera, cfg: StereoConfig = StereoConfig()):
     """Match left->right with epipolar/disparity gates.
 
-    Returns (u_right, depth, has_depth) each (N,) aligned with left features."""
-    D = hamming_matrix(left.desc, right.desc).to(torch.float32)  # (N, M)
-    du = left.uv[:, 0:1] - right.uv[None, :, 0]
-    dv = torch.abs(left.uv[:, 1:2] - right.uv[None, :, 1])
-    oct_ok = torch.abs(left.octave[:, None] - right.octave[None, :]) <= cfg.octave_tol
+    The features may carry leading batch axes (a chunk of stereo pairs);
+    every image pair is matched on its own. Returns (u_right, depth,
+    has_depth), each (..., N) aligned with the left features."""
+    D = hamming_matrix(left.desc, right.desc).to(torch.float32)  # (..., N, M)
+    du = left.uv[..., :, 0:1] - right.uv[..., None, :, 0]
+    dv = torch.abs(left.uv[..., :, 1:2] - right.uv[..., None, :, 1])
+    oct_ok = torch.abs(left.octave[..., :, None] - right.octave[..., None, :]) <= cfg.octave_tol
     min_disp = cam.bf / cfg.max_depth
     max_disp = cam.bf / cfg.min_depth
-    tol = cfg.row_margin * pow12(left.octave)[:, None]
-    mask = (left.valid[:, None] & right.valid[None, :] & oct_ok & (dv <= tol)
+    tol = cfg.row_margin * pow12(left.octave)[..., :, None]
+    mask = (left.valid[..., :, None] & right.valid[..., None, :] & oct_ok & (dv <= tol)
             & (du >= min_disp) & (du <= max_disp))
     BIG = 1e6
     cost = torch.where(mask, D, torch.full_like(D, BIG))
 
-    j_best = torch.argmin(cost, dim=1)
-    best = torch.gather(cost, 1, j_best[:, None])[:, 0]
-    masked = cost.scatter(1, j_best[:, None], float("inf"))
-    second = torch.min(masked, dim=1).values
+    j_best = torch.argmin(cost, dim=-1)  # (..., N)
+    best = torch.gather(cost, -1, j_best[..., None])[..., 0]
+    masked = cost.scatter(-1, j_best[..., None], float("inf"))
+    second = torch.min(masked, dim=-1).values
 
-    i_best_of_j = torch.argmin(cost, dim=0)  # (M,)
-    mutual = i_best_of_j[j_best] == torch.arange(cost.shape[0], device=cost.device)
+    i_best_of_j = torch.argmin(cost, dim=-2)  # (..., M)
+    mutual = (torch.gather(i_best_of_j, -1, j_best)
+              == torch.arange(cost.shape[-2], device=cost.device))
     ok = ((best <= cfg.max_hamming)
           & (best <= cfg.ratio * torch.clamp(second, max=BIG - 1.0))
           & mutual & (best < BIG))
 
-    u_r = right.uv[j_best, 0]
-    disp = torch.clamp(left.uv[:, 0] - u_r, min=1e-3)
+    u_r = torch.gather(right.uv[..., 0], -1, j_best)
+    disp = torch.clamp(left.uv[..., 0] - u_r, min=1e-3)
     depth = cam.bf / disp
     u_r = torch.where(ok, u_r, torch.full_like(u_r, -1.0))
     depth = torch.where(ok, depth, torch.full_like(depth, -1.0))

@@ -1,8 +1,7 @@
 """Structure-of-arrays map state and its mutation ops.
 
-Port of the parts of orbslam3_tpu/map/slam_map.py the stereo and
-stereo-inertial paths run (compaction, eviction and drop_map are not here).
-Ids are row indices; `MapState` has the JAX package's field names, shapes
+Port of orbslam3_tpu/map/slam_map.py (compaction lives in
+map/compaction.py). Ids are row indices; `MapState` has the JAX package's field names, shapes
 and dtypes, so the two can be compared field by field.
 
 Functions are pure: each returns a new MapState and never writes into its
@@ -323,6 +322,37 @@ def _remove_map_points(st: MapState, bad_mask, max_cull: int = 4096):
     )
 
 
+def evict_stale_points(st: MapState, n_evict: int, n_protect_kf: int = 8):
+    """Capacity-pressure eviction of stale map points (a host service).
+
+    Regular culling only removes weak young points; mature points that left
+    the field of view live forever and a textured world spawns corners
+    without bound. Under pressure the lowest-value eligible points go: not
+    observed by any of the newest `n_protect_kf` keyframes of the active map,
+    fewest observations first, least recently observed as the tie-break, and
+    among exact ties of the float32 score the lower row first."""
+    K = st.kf_valid.shape[0]
+    ninf = float("-inf")
+    t = torch.where(st.kf_valid & (st.kf_map_id == st.active_map), st.kf_time,
+                    torch.full_like(st.kf_time, ninf))
+    k_eff = min(n_protect_kf, K)
+    thresh_t = topk_stable(t, k_eff)[0][-1]
+    obs_ok = st.mp_obs_kf >= 0
+    obs_t = st.kf_time[st.mp_obs_kf.long().clamp(0, K - 1)]
+    obs_t = torch.where(obs_ok, obs_t, torch.full_like(obs_t, ninf))
+    newest_t = obs_t.max(dim=1).values  # (M,) -inf if unobserved
+    eligible = st.mp_valid & (newest_t < thresh_t)
+    # smaller = evicted first: the observation count dominates, recency breaks ties
+    score = st.mp_obs_n.to(F32) * 1e6 + newest_t
+    n_evict = min(n_evict, st.mp_valid.shape[0])
+    _, ids = topk_stable(torch.where(eligible, -score, torch.full_like(score, ninf)), n_evict)
+    ok = eligible[ids]
+    # order-free scatter-max: the masked lanes all name row 0 and write False
+    mask = torch.zeros_like(st.mp_valid, dtype=I32).scatter_reduce(
+        0, torch.where(ok, ids, torch.zeros_like(ids)), ok.to(I32), "amax") > 0
+    return _remove_map_points(st, mask)
+
+
 def local_window(st: MapState, kf_id, window: int):
     """Top-`window` covisible keyframes of kf_id (kf_id itself first).
     Returns (ids (window,), valid (window,))."""
@@ -401,6 +431,12 @@ def reset_active_map(st: MapState):
     """Invalidate every keyframe/point of the active map."""
     kf_bad = st.kf_valid & (st.kf_map_id == st.active_map)
     mp_bad = st.mp_valid & (st.mp_map_id == st.active_map)
+    return _invalidate(st, kf_bad, mp_bad)
+
+
+def _invalidate(st: MapState, kf_bad, mp_bad):
+    """Mask off keyframe rows `kf_bad` and point rows `mp_bad` with their
+    observation lists, feature references and covisibility."""
     covis = torch.where(kf_bad[:, None] | kf_bad[None, :], torch.zeros_like(st.covis), st.covis)
     neg = torch.full_like(st.mp_obs_kf, -1)
     return st._replace(
@@ -411,6 +447,17 @@ def reset_active_map(st: MapState):
         kf_mp=torch.where(kf_bad[:, None], torch.full_like(st.kf_mp, -1), st.kf_mp),
         covis=covis,
     )
+
+
+def drop_map(st: MapState, map_id):
+    """Invalidate every keyframe/point of an archived map (capacity
+    eviction): create_new_map keeps the old rows valid, and compaction
+    reclaims only invalid rows, so a session that lost tracking at full
+    keyframe capacity could otherwise never insert the fresh map's anchor.
+    The host evicts the oldest archived map first under pressure."""
+    kf_bad = st.kf_valid & (st.kf_map_id == map_id)
+    mp_bad = st.mp_valid & (st.mp_map_id == map_id)
+    return _invalidate(st, kf_bad, mp_bad)
 
 
 def create_new_map(st: MapState):

@@ -1,10 +1,15 @@
 """The per-frame SLAM step and its host wrapper.
 
-Port of orbslam3_tpu/models/fused.py at chunk=1: `TrackState`, `FrameOut`,
-`_frontend`, `_slam_step_core` and `FusedSlam` with its IMU host services
-(initialization, time-phased refinement, the static-start reset). The JAX
-package runs the whole step as one XLA program with lax.cond branches; here
-the step runs eagerly on the state's device and each lax.cond became:
+Port of orbslam3_tpu/models/fused.py: `TrackState`, `FrameOut`, the front
+end for one frame or a whole chunk of frames, `_slam_step_core`,
+`slam_step_chunk` and `FusedSlam` with its host services (IMU
+initialization, time-phased refinement, the static-start reset, map
+compaction with its pressure evictions), checkpoint resume (`from_state`)
+and chunked dispatch. The JAX package runs the whole step as one XLA program
+with lax.cond branches, and a chunk as a lax.scan over it; here the step
+runs eagerly on the state's device, a chunk is the batched front end
+followed by a Python loop over the step's back end, and each lax.cond
+became:
 
 * one host read per frame of a few flags and counters together
   (`FusedSlam._sync`): the lost-timeout reset, the keyframe insert, the
@@ -23,8 +28,7 @@ the step runs eagerly on the state's device and each lax.cond became:
   IMU-initialization service, so the host knows it, as it knows whether the
   frame came with IMU samples.
 
-`FusedSlam` refuses (NotImplementedError) a vocabulary (loop closing),
-chunk>1 and map compaction.
+`FusedSlam` refuses (NotImplementedError) a vocabulary (loop closing).
 """
 from __future__ import annotations
 
@@ -34,14 +38,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from orbslam3_tpu_torch import set_full_precision
+from orbslam3_tpu_torch import default_device, set_full_precision
 from orbslam3_tpu_torch.frontend.camera import Camera
-from orbslam3_tpu_torch.frontend.orb import detect_orb_pair
+from orbslam3_tpu_torch.frontend.orb import Features, detect_orb_batch
 from orbslam3_tpu_torch.frontend.stereo import match_stereo
 from orbslam3_tpu_torch.geometry import quat
 from orbslam3_tpu_torch.imu import preintegration as pre
+from orbslam3_tpu_torch.interop import to_device
 from orbslam3_tpu_torch.map import mapping_ops as mo
 from orbslam3_tpu_torch.map import slam_map as sm
+from orbslam3_tpu_torch.map.compaction import compact_map
 from orbslam3_tpu_torch.map.triangulation import triangulate_with_neighbor
 from orbslam3_tpu_torch.models import policy
 from orbslam3_tpu_torch.models.local_mapper import (apply_ba_results, apply_vi_ba_results,
@@ -132,13 +138,34 @@ class FrameOut(NamedTuple):
     rel_p: torch.Tensor  # (3,)
 
 
-def _frontend(left_u8, right_u8, cam: Camera, cfg: SlamConfig):
-    """ORB pair detection + stereo matching; body-frame 3D points."""
-    featL, featR = detect_orb_pair(left_u8.to(F32), right_u8.to(F32), cfg.orb)
+def _frontend_chunk(lefts_u8, rights_u8, cam: Camera, cfg: SlamConfig):
+    """Front end for all C frames of a chunk in one batched pass over the
+    2C images (one FAST/NMS launch): ORB detection, stereo matching,
+    body-frame 3D points. It depends only on the images, not on the tracking
+    state, so it runs before the chunk's sequential steps. Every result
+    carries the leading chunk axis C."""
+    # left and right of a frame side by side in the batch: the operators that
+    # work on groups of images (ops/brief.py::orientations_from_patches) then
+    # see each stereo pair as a one-frame call does
+    imgs = torch.stack([lefts_u8, rights_u8], dim=1).flatten(0, 1)
+    f = detect_orb_batch(imgs.to(F32), cfg.orb)
+    featL = Features(*[a[0::2] for a in f])
+    featR = Features(*[a[1::2] for a in f])
     u_r, depth, has_depth = match_stereo(featL, featR, cam, cfg.stereo)
     points_body = cam.cam_pts_to_body(
         cam.unproject(featL.uv, torch.where(has_depth, depth, torch.ones_like(depth))))
     return featL, u_r, depth, has_depth, points_body
+
+
+def _frontend_frame(fe, i: int):
+    """Frame i's slice of a `_frontend_chunk` result."""
+    featL, *rest = fe
+    return (Features(*[a[i] for a in featL]), *[a[i] for a in rest])
+
+
+def _frontend(left_u8, right_u8, cam: Camera, cfg: SlamConfig):
+    """The front end of one frame: a chunk of one."""
+    return _frontend_frame(_frontend_chunk(left_u8[None], right_u8[None], cam, cfg), 0)
 
 
 def _ref_kf_match(st: sm.MapState, kf, featL, max_hamming: int):
@@ -182,16 +209,20 @@ def _ransac_seed(t: float) -> int:
 
 def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, acc, dts,
                     imu_mask, t, cam: Camera, cfg: SlamConfig, sync, imu_ok: bool = False,
-                    have_imu_host: bool = True, lap=lambda stage: None):
-    """One SLAM iteration. `sync(tensor)` reads device flags to the host;
+                    have_imu_host: bool = True, lap=lambda stage: None, fe=None):
+    """One SLAM iteration. `fe` is the frame's front-end result where the
+    caller computed it already (a chunk's, batched), else the front end runs
+    here on the two images. `sync(tensor)` reads device flags to the host;
     `imu_ok` (the IMU is initialized) and `have_imu_host` (the frame has IMU
     samples) are what the host already knows of `ts.imu_ok` and `imu_mask`.
     `lap(stage)` is called at the end of each stage of the step, for a
     caller that keeps host time by stage.
     Returns (MapState, TrackState, FrameOut, StepFlags)."""
     dev = ts.q.device
-    featL, u_r, depth, has_depth, points_body = _frontend(left_u8, right_u8, cam, cfg)
-    lap("frontend")
+    if fe is None:
+        fe = _frontend(left_u8, right_u8, cam, cfg)
+        lap("frontend")
+    featL, u_r, depth, has_depth, points_body = fe
     t_host = float(t)
     t = torch.as_tensor(t, dtype=F32, device=dev)
     K = st.kf_valid.shape[0]
@@ -428,42 +459,68 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
     return st, ts, out, StepFlags(bool(f_lost), bool(f_kf), mode_h, n_kf_h + bool(f_kf), n_mp_h)
 
 
+def slam_step_chunk(st: sm.MapState, ts: TrackState, lefts, rights, gyro, acc, dts, imu_mask,
+                    t, cam: Camera, cfg: SlamConfig, sync, have_imu_host, imu_ok: bool = False,
+                    lap=lambda stage: None):
+    """C SLAM iterations on inputs that carry a leading chunk axis: the
+    front end once on all 2C images, then the step's back end frame by
+    frame (each frame's branches depend on the one before it, so each reads
+    its own flags). `t` is a sequence of C host floats and `have_imu_host`
+    of C bools. Latency grows by C frames: a throughput/latency knob.
+    Returns (MapState, TrackState, FrameOut with every field stacked over
+    the chunk, [StepFlags] * C)."""
+    C = lefts.shape[0]
+    fe = _frontend_chunk(lefts, rights, cam, cfg)
+    lap("frontend")
+    outs, flags = [], []
+    for i in range(C):
+        st, ts, out, fl = _slam_step_core(
+            st, ts, None, None, gyro[i], acc[i], dts[i], imu_mask[i], t[i], cam, cfg, sync,
+            imu_ok=imu_ok, have_imu_host=have_imu_host[i], lap=lap, fe=_frontend_frame(fe, i))
+        outs.append(out)
+        flags.append(fl)
+    return st, ts, FrameOut(*[torch.stack(f) for f in zip(*outs)]), flags
+
+
 class FusedSlam:
     """Host wrapper around the SLAM step: streams frames, keeps per-frame
     outputs on the device and reads them at the end, and runs the rare
-    host services (IMU initialization and refinement, the capacity check)
-    every `service_every` frames.
+    host services (IMU initialization and refinement, map compaction)
+    every `service_every` frames. With `chunk` > 1 frames are buffered and
+    dispatched `chunk` at a time (`flush`), the front end batched over the
+    whole chunk.
 
-    Runs at chunk=1 on `device`: the CUDA card unless the caller passes
-    another device (device="cpu" runs on the CPU), and a RuntimeError where
-    there is no card. The camera is moved there. A vocabulary (loop closing),
-    chunk>1 and a map that reaches the compaction margin raise
-    NotImplementedError."""
+    Runs on `device`: the CUDA card unless the caller passes another device
+    (device="cpu" runs on the CPU), and a RuntimeError where there is no
+    card. The camera is moved there. A vocabulary (loop closing) raises
+    NotImplementedError; `warmup` only prepares the loop closer, so without
+    one it does nothing."""
 
     def __init__(self, cam: Camera, cfg: SlamConfig, vocabulary=None, service_every: int = 8,
-                 chunk: int = 1, loop_cfg=None, device=None):
-        refused = []
+                 chunk: int = 1, warmup: bool = False, loop_cfg=None, device=None):
         if vocabulary is not None or loop_cfg is not None:
-            refused.append("a vocabulary (loop closing)")
-        if chunk != 1:
-            refused.append("chunk>1 (batched dispatch)")
-        if refused:
-            raise NotImplementedError("orbslam3_tpu_torch: not ported yet: " + ", ".join(refused))
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "FusedSlam runs on device 'cuda' by default and no CUDA device is "
-                    "available (torch.cuda.is_available() is False); pass device='cpu' "
-                    "to run on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+            raise NotImplementedError(
+                "orbslam3_tpu_torch: not ported yet: a vocabulary (loop closing)")
+        self.device = default_device(device)
         set_full_precision()
         self.cam = cam.to(self.device)
         self.cfg = cfg
         self.map = sm.empty_map(cfg.cap, device=self.device)
         self.ts = TrackState.initial(self.device)
-        self.outs: list = []  # (t, FrameOut), device tensors
+        # (t, FrameOut) a frame at chunk=1, ([t] * C, batched FrameOut) a chunk
+        self.outs: list = []
+        # compaction remaps for the corrected trajectory export: an entry of
+        # `outs` recorded at epoch e passes its ref_kf through every remap
+        # appended after e
+        self._out_epochs: list = []
+        self._kf_remaps: list = []
         self.service_every = service_every
+        self.chunk = chunk  # frames per dispatch (throughput knob)
+        self._pending: list = []
+        self.compactions = 0
+        self.map_evictions = 0  # archived maps dropped under keyframe pressure
+        self.kf_evictions = 0  # keyframes thinned out of one full active map
+        self.mp_evictions = 0  # stale map points evicted under point pressure
         self._frames = 0
         self._last_t = 0.0
         self.imu_initialized = False
@@ -532,41 +589,90 @@ class FusedSlam:
     def _pad_imu(self, gyro, acc, dts):
         return pre.pad_imu_window(gyro, acc, dts, self.cfg.max_imu_per_frame)
 
+    @classmethod
+    def from_state(cls, cam: Camera, cfg: SlamConfig, map_state, track_state,
+                   **kwargs) -> "FusedSlam":
+        """Resume a running system from a (MapState, TrackState) pair, as a
+        checkpoint holds it (map/checkpoint.py::load_map). The state is moved
+        to the system's device (`device=` as in the constructor).
+
+        The host mirrors are set from the state in one read: row counts,
+        tracker mode, last frame time (the newest keyframe's), IMU phase (a
+        resumed session with an initialized IMU skips the initialization and
+        the time-phased refinements)."""
+        slam = cls(cam, cfg, **kwargs)
+        dev = slam.device
+        slam.map, slam.ts = to_device(map_state, dev), to_device(track_state, dev)
+        m = slam.map
+        K = m.kf_valid.shape[0]
+        in_use = torch.arange(K, device=dev) < m.n_kf
+        newest = torch.where(in_use, m.kf_time, torch.zeros_like(m.kf_time)).max()
+        n_kf, n_mp, imu_ok, mode, last_t = slam._sync(torch.stack(
+            [x.to(torch.float64) for x in (m.n_kf, m.n_mp, slam.ts.imu_ok, slam.ts.mode, newest)]))
+        slam._n_kf = slam._kf_ub = int(n_kf)
+        slam._mp_ub = int(n_mp)
+        slam._mode = int(mode)
+        if slam._n_kf:
+            slam._last_t = float(np.float32(last_t))
+        if imu_ok:
+            slam.imu_initialized = True
+            slam._imu_phase = 3  # past all refinement phases
+            slam._imu_init_time = slam._last_t
+        return slam
+
     def process_frame(self, left, right, gyro, acc, dts, t: float):
         t0 = self._tic()
         g, a, d, m = self._pad_imu(gyro, acc, dts)
         l_u8 = np.asarray(left, np.uint8) if left.dtype != np.uint8 else left
         r_u8 = np.asarray(right, np.uint8) if right.dtype != np.uint8 else right
-        dev = self.device
-        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (l_u8, r_u8, g, a, d, m)]
-        self._toc("upload", t0)
-        t0 = self._lap_t = self._tic()
-        self.map, self.ts, out, flags = _slam_step_core(
-            self.map, self.ts, *args, np.float32(t), self.cam, self.cfg, self._sync,
-            imu_ok=self.imu_initialized, have_imu_host=bool(m.any()), lap=self._lap)
-        self._toc("step", t0)
-        self.outs.append((t, out))
+        out = None
+        if self.chunk > 1:
+            self._pending.append((l_u8, r_u8, g, a, d, m, np.float32(t)))
+            if len(self._pending) >= self.chunk:
+                out = self.flush()
+        else:
+            dev = self.device
+            args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                    for x in (l_u8, r_u8, g, a, d, m)]
+            self._toc("upload", t0)
+            t0 = self._lap_t = self._tic()
+            self.map, self.ts, out, flags = _slam_step_core(
+                self.map, self.ts, *args, np.float32(t), self.cam, self.cfg, self._sync,
+                imu_ok=self.imu_initialized, have_imu_host=bool(m.any()), lap=self._lap)
+            self._toc("step", t0)
+            self.outs.append((t, out))
+            self._out_epochs.append(len(self._kf_remaps))
+            self._mirror(flags)
         self._frames += 1
         self._last_t = float(t)
+        # host services only while something host-side remains to do
+        need_services = ((self.cfg.use_imu and not self.imu_initialized)
+                         or self._imu_refine_due() or self._compact_due())
+        if need_services and self._frames % self.service_every == 0:
+            if self._pending:
+                self.flush()
+            t0 = self._tic()
+            self._host_services()
+            self._toc("host_services", t0)
+        return out
+
+    def _mirror(self, flags: StepFlags):
+        """Host mirrors of the device's counters after a step."""
         self._mode = flags.mode
         self._n_kf = flags.n_kf
         # rows in use: exact for keyframes; a keyframe adds at most the
         # stereo spawn budget plus the triangulated points
         self._kf_ub = flags.n_kf
         self._mp_ub = flags.n_mp + (self.cfg.new_mp_budget + 128) * flags.is_kf
-        # host services only while something host-side remains to do
-        need_services = ((self.cfg.use_imu and not self.imu_initialized)
-                         or self._imu_refine_due() or self._compact_due())
-        if need_services and self._frames % self.service_every == 0:
-            t0 = self._tic()
-            self._host_services()
-            self._toc("host_services", t0)
-        return out
 
     def _compact_due(self) -> bool:
+        """The row bounds reach the capacity margin; a buffered frame counts
+        for the most rows it can add (one keyframe and its points)."""
         cap = self.cfg.cap
-        return (self._kf_ub >= cap.max_kf - 4
-                or self._mp_ub >= cap.max_mp - 2 * self.cfg.new_mp_budget)
+        n = len(self._pending)
+        return (self._kf_ub + n >= cap.max_kf - 4
+                or self._mp_ub + n * (self.cfg.new_mp_budget + 128)
+                >= cap.max_mp - 2 * self.cfg.new_mp_budget)
 
     def _host_services(self):
         """Rare host-side work: IMU initialization until it succeeds, then
@@ -589,20 +695,100 @@ class FusedSlam:
         self._maybe_compact()
         self._toc("compaction", t0)
 
+    def _compact_once(self):
+        """One compaction pass and the host's remap bookkeeping, with one
+        device read: the old->new keyframe table, the pre-compaction temporal
+        chain, the tracker's reference keyframe and the new row counts."""
+        prev_chain = self.map.kf_prev  # pre-compaction rows
+        self.map, kf_map, _ = compact_map(self.map)
+        K = kf_map.shape[0]
+        table = self._sync(torch.cat([kf_map, prev_chain, torch.stack(
+            [self.ts.last_kf, self.map.n_kf, self.map.n_mp])]))
+        km, prev_chain = np.asarray(table[:K]), table[K:2 * K]
+        lk, n_kf, n_mp = table[2 * K:]
+        # if the tracker's reference keyframe was culled, walk its temporal
+        # chain to the nearest surviving predecessor rather than silently
+        # re-referencing row 0 (an arbitrary oldest keyframe)
+        new_lk = -1
+        for _ in range(K):
+            if not (0 <= lk < K):
+                break
+            new_lk = int(km[lk])
+            if new_lk >= 0:
+                break
+            lk = prev_chain[lk]
+        self.ts = self.ts._replace(
+            last_kf=torch.tensor(max(new_lk, 0), dtype=I32, device=self.device))
+        # (a loop closer keeps keyframe rows of its own, its bag-of-words
+        # database and pending detections: it remaps them with `km` here)
+        self._kf_remaps.append(km)
+        self.compactions += 1
+        self._n_kf = self._kf_ub = n_kf
+        self._mp_ub = n_mp
+
     def _maybe_compact(self):
-        """Read the true row counts once the host-side bounds near
-        capacity. Compaction itself is not ported: a map that really reaches
-        the margin raises NotImplementedError."""
+        """Reclaim culled rows when capacity nears exhaustion. Runs as a
+        host service, only near the capacity ceiling; each pass reads the
+        device once, and so does each decision between passes.
+
+        If capacity stays exhausted after compaction, live rows are what
+        occupy it and something must go or the system wedges or starves:
+        - keyframe rows held by archived maps: evict the oldest archived map
+          first (a tracking loss at full capacity could otherwise never
+          insert the fresh map's anchor keyframe);
+        - keyframe rows of one giant active map: pressure-evict the most
+          connected non-recent keyframes (spatial thinning: without new
+          keyframe rows no map point can spawn and tracking starves as the
+          camera moves on);
+        - map-point rows: evict stale low-value points (regular culling only
+          removes weak young points; mature out-of-view points live forever
+          and a textured world spawns corners without bound)."""
         if not self._compact_due():
             return
+        cap, cfg = self.cfg.cap, self.cfg
+        kf_margin = cap.max_kf - 4
+        mp_margin = cap.max_mp - 2 * cfg.new_mp_budget
         n_kf, n_mp = self._sync(torch.stack([self.map.n_kf, self.map.n_mp]))
-        cap = self.cfg.cap
-        if n_kf >= cap.max_kf - 4 or n_mp >= cap.max_mp - 2 * self.cfg.new_mp_budget:
-            raise NotImplementedError(
-                f"map compaction is not ported yet (n_kf={n_kf}/{cap.max_kf}, "
-                f"n_mp={n_mp}/{cap.max_mp})")
-        self._kf_ub = n_kf
+        self._n_kf = self._kf_ub = n_kf
         self._mp_ub = n_mp
+        if n_kf < kf_margin and n_mp < mp_margin:
+            return
+        K = cap.max_kf
+        self._compact_once()
+        while self._n_kf >= kf_margin:
+            m = self.map
+            table = self._sync(torch.cat([m.kf_map_id, m.kf_valid.to(I32), m.active_map[None]]))
+            kf_map_id, kf_valid, active = np.asarray(table[:K]), np.asarray(table[K:2 * K]), table[-1]
+            archived = sorted(set(kf_map_id[kf_valid > 0].tolist()) - {active})
+            if archived:
+                self.map = sm.drop_map(m, torch.tensor(archived[0], dtype=I32, device=self.device))
+                self.map_evictions += 1
+            else:
+                # one giant active map: thin the densest regions. A pass
+                # without a candidate writes nothing, and neither does any
+                # pass after it.
+                evicted = torch.zeros((), dtype=I32, device=self.device)
+                for _ in range(max(K // 8, 4)):
+                    k = mo.select_pressure_evict_kf(m, self.ts.last_kf)
+                    m = mo.remove_keyframe(m, k.clamp(0, K - 1), enable=k >= 0)
+                    evicted = evicted + (k >= 0).to(I32)
+                (evicted,) = self._sync(evicted[None])
+                if evicted == 0:
+                    break
+                self.kf_evictions += evicted
+                # orphaned points (they lost their observers) go with them
+                self.map = sm.cull_map_points(m)
+            self._compact_once()
+        # stale-point eviction: free at least 4 keyframes' spawn headroom per
+        # pass, bounded by the per-pass cap of the point removal
+        n_evict = min(max(cap.max_mp // 8, 4 * cfg.new_mp_budget), 4096)
+        while self._mp_ub >= mp_margin:
+            before = self._mp_ub
+            self.map = sm.evict_stale_points(self.map, n_evict)
+            self._compact_once()
+            if self._mp_ub >= before:
+                break  # nothing eligible (all protected)
+            self.mp_evictions += before - self._mp_ub
 
     # ---------------------------------------------------------------- IMU
     def _fetch_kf_table(self, n_kf: int) -> dict:
@@ -769,12 +955,36 @@ class FusedSlam:
         self._imu_init_time = None
 
     def flush(self):
-        """No buffered frames at chunk=1."""
-        return None
+        """Dispatch the buffered frames as one chunk: one upload of the
+        stacked inputs, one batched front end, then the steps in turn. The
+        chunk's FrameOut stays one batched entry of `outs`."""
+        if not self._pending:
+            return None
+        t0 = self._tic()
+        batch, self._pending = self._pending, []
+        dev = self.device
+        stacked = [torch.from_numpy(np.stack([b[i] for b in batch])).to(dev) for i in range(6)]
+        ts_ = [b[6] for b in batch]
+        self._toc("upload", t0)
+        t0 = self._lap_t = self._tic()
+        self.map, self.ts, outs, flags = slam_step_chunk(
+            self.map, self.ts, *stacked, ts_, self.cam, self.cfg, self._sync,
+            [bool(b[5].any()) for b in batch], imu_ok=self.imu_initialized, lap=self._lap)
+        # the chunk's frames share its time: "step" stays a per-frame figure
+        # and its stages go on adding up to it
+        cell = self.timing.setdefault("step", [0.0, 0])
+        cell[0] += time.perf_counter() - t0
+        cell[1] += len(batch)
+        self._toc("dispatch_chunk", t0)
+        self.outs.append(([float(t) for t in ts_], outs))
+        self._out_epochs.append(len(self._kf_remaps))
+        self._mirror(flags[-1])
+        return outs
 
     def finalize(self):
-        """End of sequence: a last service round if the IMU is still to be
-        initialized, then wait for the device."""
+        """End of sequence: dispatch the buffered frames, a last service
+        round if the IMU is still to be initialized, then wait for the
+        device."""
         self.flush()
         if self.cfg.use_imu and not self.imu_initialized:
             self._host_services()
@@ -783,14 +993,19 @@ class FusedSlam:
 
     # ------------------------------------------------------------------
     def _flat_outs(self):
-        """(times, FrameOut of stacked numpy arrays) — one device read per
-        field for the whole sequence."""
-        ts_ = [t for t, _ in self.outs]
+        """(times, FrameOut of numpy arrays stacked over every frame, the
+        compaction epoch of every frame): one device read per field for the
+        whole sequence. A chunk's entry holds a batched FrameOut."""
+        ts_, eps, fields = [], [], [[] for _ in FrameOut._fields]
+        for (t, o), ep in zip(self.outs, self._out_epochs):
+            chunked = isinstance(t, list)
+            ts_.extend(t if chunked else [t])
+            eps.extend([ep] * (len(t) if chunked else 1))
+            for col, x in zip(fields, o):
+                col.append(x if chunked else x[None])
         if not self.outs:
-            return ts_, None
-        outs = FrameOut(*[torch.stack([o[i] for _, o in self.outs]).cpu().numpy()
-                          for i in range(len(FrameOut._fields))])
-        return ts_, outs
+            return ts_, None, eps
+        return ts_, FrameOut(*[torch.cat(col).cpu().numpy() for col in fields]), eps
 
     def frame_outputs(self):
         """The FrameOut of every processed frame, its fields stacked over the
@@ -799,10 +1014,12 @@ class FusedSlam:
 
     def trajectory_arrays(self, corrected: bool = True):
         """(times, positions, quats). With corrected=True each frame pose is
-        re-composed from its reference keyframe's final pose."""
+        re-composed from its reference keyframe's final pose, found through
+        the compaction remaps made since the frame was recorded; a frame
+        whose reference keyframe was compacted away keeps its raw pose."""
         from orbslam3_tpu_torch.io.synthetic import _qmul, _qnorm, _qrot
 
-        ts_, outs = self._flat_outs()
+        ts_, outs, eps = self._flat_outs()
         if outs is None:
             return np.asarray(ts_), np.zeros((0, 3), np.float32), np.zeros((0, 4), np.float32)
         ps = outs.p.copy()
@@ -814,6 +1031,10 @@ class FusedSlam:
         K = len(kf_q)
         for i in range(len(ts_)):
             ref = int(outs.ref_kf[i])
+            for km in self._kf_remaps[eps[i]:]:
+                if ref < 0:
+                    break
+                ref = int(km[ref]) if ref < len(km) else -1
             if ref < 0 or ref >= K:
                 continue
             qr = kf_q[ref]
@@ -822,5 +1043,5 @@ class FusedSlam:
         return np.asarray(ts_), ps, qs
 
     def modes(self):
-        _, outs = self._flat_outs()
+        outs = self._flat_outs()[1]
         return np.zeros(0, int) if outs is None else outs.mode.astype(int)

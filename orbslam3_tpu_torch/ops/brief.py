@@ -64,7 +64,14 @@ def orientations_from_patches(patches):
     key = (S, str(patches.device))
     if key not in _MOMENT_W:
         _MOMENT_W[key] = torch.from_numpy(_moment_weights(S)).to(patches.device)
-    m = patches.reshape(patches.shape[:-2] + (S * S,)) @ _MOMENT_W[key]
+    flat = patches.reshape(patches.shape[:-2] + (S * S,))
+    if flat.dim() == 3 and flat.shape[0] > 2:
+        # a matrix product's order of summation depends on its row count, so
+        # a larger batch goes two images (one stereo pair) at a time: every
+        # image then gets the bits it gets in a batch of two
+        m = torch.cat([g @ _MOMENT_W[key] for g in flat.split(2)])
+    else:
+        m = flat @ _MOMENT_W[key]
     return torch.atan2(m[..., 1], m[..., 0])
 
 

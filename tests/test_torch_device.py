@@ -41,8 +41,24 @@ def test_explicit_cpu_runs_a_frame(world, device):
 
 
 def test_unported_options_are_refused_before_the_device_is_picked(world, monkeypatch):
+    """Only loop closing is still refused: a vocabulary or a loop_cfg, with
+    or without `warmup`, which prepares nothing but the loop closer."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(NotImplementedError, match="chunk"):
-        FusedSlam(world.cam, SLICE_CFG, chunk=4)
     with pytest.raises(NotImplementedError, match="vocabulary"):
         FusedSlam(world.cam, SLICE_CFG._replace(use_imu=True), vocabulary=object())
+    with pytest.raises(NotImplementedError, match="loop closing"):
+        FusedSlam(world.cam, SLICE_CFG, loop_cfg=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="vocabulary"):
+        FusedSlam(world.cam, SLICE_CFG, vocabulary=object(), warmup=True, chunk=8)
+    # chunked dispatch is not refused any more: it picks its device like any other
+    with pytest.raises(RuntimeError, match="cuda"):
+        FusedSlam(world.cam, SLICE_CFG, chunk=4)
+
+
+def test_bench_signature_constructs(world):
+    """The keywords bench.py::run_pipeline passes without a vocabulary."""
+    slam = FusedSlam(world.cam, TINY_CFG, service_every=8, chunk=8, vocabulary=None,
+                     warmup=False, device="cpu")
+    assert slam.chunk == 8 and slam.flush() is None and slam.compactions == 0
+    slam.finalize()
+    assert slam.frame_outputs() is None and slam.trajectory_arrays()[1].shape == (0, 3)

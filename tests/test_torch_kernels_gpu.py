@@ -2,7 +2,7 @@
 its plain PyTorch version, bitwise, at every pyramid-level shape of a
 480x752 frame, for the stereo stack (B=2) and a single image (B=1), and
 the whole pyramid in one launch (fast_nms_levels), ragged and tiny levels
-included.
+included, and the 16 images of a chunk of 8 stereo frames (B=16).
 Needs an NVIDIA GPU and nvcc: run on the card with
 `python -m pytest -m gpu tests/test_torch_kernels_gpu.py`."""
 import numpy as np
@@ -74,9 +74,23 @@ def _check_levels(levels, **thr):
 
 
 @pytest.mark.parametrize("integer", [True, False], ids=["integer", "non_integer"])
-@pytest.mark.parametrize("B", [2, 1])
+@pytest.mark.parametrize("B", [2, 1, 16])
 def test_fast_nms_levels_pyramid_one_launch(cuda, B, integer):
     _check_levels(_levels(np.random.default_rng(3 + B), SHAPES, B, cuda, integer))
+
+
+def test_fast_nms_levels_chunk_batch_is_image_by_image(cuda):
+    """B = 16, the 2C images of a chunk of 8 frames: 18,560 blocks in one
+    launch, and every image scored as it is in its own stereo pair (B = 2)."""
+    from orbslam3_tpu_torch.ops.fast_cuda import level_table
+
+    levels = _levels(np.random.default_rng(16), SHAPES, 16, cuda, integer=False)
+    assert level_table(tuple(SHAPES), 16)[1] == 8 * level_table(tuple(SHAPES), 2)[1] == 18560
+    got = fast_nms_levels(levels)
+    for p in range(8):
+        pair = fast_nms_levels([lv[2 * p:2 * p + 2].contiguous() for lv in levels])
+        for g, h in zip(got, pair):
+            assert torch.equal(g[2 * p:2 * p + 2], h)
 
 
 # smaller than the 4-pixel halo, one tile exactly, one pixel over a tile, wide and flat

@@ -1,8 +1,9 @@
 """The port stands alone: with JAX and the JAX package made unimportable,
 every module of orbslam3_tpu_torch imports (the visual-inertial ones
 among them) and one small frame runs through FusedSlam on the CPU under the
-stereo configuration and under the stereo-inertial one (the machine with
-the card has no JAX)."""
+stereo configuration and under the stereo-inertial one, then one chunk of
+two frames, one compaction pass and one checkpoint round trip (the machine
+with the card has no JAX)."""
 import re
 import subprocess
 import sys
@@ -34,8 +35,24 @@ for base in (SLICE_CFG, BENCH_CFG):
     slam = FusedSlam(world.cam, cfg, device="cpu")
     out = slam.process_frame(left, right, *world.imu_window(0.0, 0.0), 0.0)
     assert int(out.mode) == MODE_OK and bool(out.is_kf), out
+import os, tempfile
+from orbslam3_tpu_torch.map.checkpoint import load_map, save_map
+from orbslam3_tpu_torch.map.compaction import compact_map
+slam = FusedSlam(world.cam, cfg, chunk=2, device="cpu")
+assert slam.process_frame(left, right, *world.imu_window(0.0, 0.0), 0.0) is None
+out = slam.process_frame(*world.render_frame(0.1), *world.imu_window(0.0, 0.1), 0.1)
+assert out.p.shape == (2, 3) and out.mode.tolist() == [MODE_OK, MODE_OK], out
+st, kf_map, mp_map = compact_map(slam.map)
+assert int(st.n_kf) == int(slam.map.kf_valid.sum()) >= 1 and int(kf_map[0]) == 0
+with tempfile.TemporaryDirectory() as d:
+    save_map(os.path.join(d, "m.npz"), slam.map, slam.ts)
+    m2, ts2 = load_map(os.path.join(d, "m.npz"), with_track_state=True, device="cpu")
+assert int(m2.n_kf) == int(slam.map.n_kf) and bool((m2.kf_p == slam.map.kf_p).all())
+again = FusedSlam.from_state(world.cam, cfg, m2, ts2, chunk=2, device="cpu")
+assert again._n_kf == int(slam.map.n_kf)
 for name in ("optim.vi_ba", "optim.imu_init", "optim.robust_pose", "map.triangulation",
-             "map.mapping_ops"):
+             "map.mapping_ops", "map.compaction", "map.checkpoint", "viz.export",
+             "geometry.se3", "geometry.sim3", "loop.sim3", "loop.vocab", "optim.pose_graph"):
     assert "orbslam3_tpu_torch." + name in names, name
 assert not any(k == "jax" or k.startswith(("jax.", "orbslam3_tpu."))
                for k, v in sys.modules.items() if v is not None)
@@ -47,7 +64,7 @@ def test_port_runs_without_jax():
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert int(res.stdout.split()[-1]) >= 25
+    assert int(res.stdout.split()[-1]) >= 35
 
 
 def test_port_sources_never_import_jax():

@@ -80,24 +80,31 @@ def test_slice_trajectory(runs):
     assert ate < 0.05 and ok_frac > 0.9, (ate, ok_frac)
 
 
-@pytest.mark.parametrize("kwargs", [dict(vocabulary=object()), dict(chunk=4)],
+@pytest.mark.parametrize("kwargs", [dict(vocabulary=object()), dict(chunk=4, loop_cfg=object())],
                          ids=["vocabulary", "chunk"])
 def test_slice_refuses_unported_wrapper_options(kwargs):
+    """Loop closing is what is still refused, at any chunk size; chunked
+    dispatch alone is not."""
     cam = port_camera(SyntheticWorld(SyntheticConfig(**SMALL_WORLD)).cam)
     with pytest.raises(NotImplementedError):
         tfused.FusedSlam(cam, tfused.SLICE_CFG, device="cpu", **kwargs)
+    assert tfused.FusedSlam(cam, tfused.SLICE_CFG, device="cpu", chunk=4).chunk == 4
 
 
 def test_slice_refuses_compaction():
-    """A map whose true row count reaches the compaction margin raises
-    instead of running on into a full array."""
+    """A map whose true row count reaches the compaction margin does not
+    run on into a full array, and no longer raises: its dead rows are
+    reclaimed, with one read for the counts and one for the pass."""
     cam = port_camera(SyntheticWorld(SyntheticConfig(**SMALL_WORLD)).cam)
     cfg = tfused.SLICE_CFG._replace(cap=TCap(max_kf=8, n_feat=64, max_mp=1024, max_obs=4))
     slam = tfused.FusedSlam(cam, cfg, device="cpu")
     slam.map = slam.map._replace(n_kf=torch.tensor(5, dtype=torch.int32))
     slam._kf_ub = 5
-    with pytest.raises(NotImplementedError, match="compaction"):
-        slam._maybe_compact()
+    slam._maybe_compact()
+    assert slam.compactions == 1 and slam.host_syncs == 2
+    assert int(slam.map.n_kf) == slam._n_kf == slam._kf_ub == 0  # no row of the 5 was live
+    slam._maybe_compact()  # nothing is due any more: no read
+    assert slam.compactions == 1 and slam.host_syncs == 2
 
 
 def test_perturb_frames():

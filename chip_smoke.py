@@ -22,16 +22,17 @@ Phases (each raises on failure; nothing is caught):
    the same at B=16, the 16 images of a chunk of 8 stereo frames in one
    launch, and the batched front end of that chunk against 8 one-frame
    calls, field by field;
-3. stereo path: FusedSlam(cam, SLICE_CFG) on cuda over the 8 s, 20 Hz,
-   752x480 bench world (bench.py::HARD_WORLD, 160 frames), noise-free and
-   under sensor-noise draw 1 of the recorded JAX reference
-   (orbslam3_tpu_torch/data/slice_reference.json), one run after the other.
-   The launch counter is set to 0 just before the noise-free run and must
+3. stereo path: FusedSlam(cam, SLICE_CFG) on cuda over the first
+   STEREO_FRAMES frames of the 8 s, 20 Hz, 752x480 bench world
+   (bench.py::HARD_WORLD), noise-free, against the recorded JAX reference
+   (orbslam3_tpu_torch/data/slice_reference.json: where it first departs,
+   ok_frac). The launch counter is set to 0 just before the run and must
    have grown by exactly 1 per frame (one launch for all pyramid levels)
    just after it;
 4. stereo-inertial path, the main path: FusedSlam(cam, BENCH_CFG), built
    with no `device` argument (so it must pick the card itself), over the
-   same world with its IMU windows. Launch counter as in 3. Raises unless
+   first MAIN_FRAMES frames of the same world with its IMU windows. Launch
+   counter as in 3. Raises unless
    the IMU is initialized at the end and the trajectory is finite with one
    pose a frame. Prints frames/s after 8 warm-up frames, timing_report()
    and from it the step's host time by stage (front end, matching, RANSAC
@@ -39,36 +40,65 @@ Phases (each raises on failure; nothing is caught):
    BA and VI-BA, triangulation, fusion, point statistics, culling), host
    syncs per frame, peak device memory, the frame at which the IMU
    initialized, gravity and biases, map sizes and keyframes culled. Then
-   the same frames at chunk=8, service_every=8 (bench.py's dispatch): one
-   FAST/NMS launch a chunk (20 over 160 frames), the IMU initialized after
-   frame 63, raw poses held to the chunk=1 run's (1 mm; whether they are
-   equal bit for bit is printed), frames/s and the stage table beside
-   chunk=1's. Then compact_map on the run's final map at the full capacity
-   shapes, on the card against the CPU (exact) with its invariants and
-   its time;
-5. the sensor-noise draw 1 of the stereo-inertial path
-   (orbslam3_tpu_torch/data/vi_reference.json); a long session on draw 1:
+   (a) the same frames with the loop closer as bench.py's
+   fps_with_loop_closing runs it: chunk=8, service_every=8, warmup=True and
+   the world's vocabulary (data/vocab_bench.npz, k=10, 4 levels): one
+   FAST/NMS launch a chunk (13 over 104 frames), no correction and the IMU
+   initialized after frame 63 as in the JAX reference
+   (data/loop_reference.json), raw poses held to the chunk=1 run's (1 mm;
+   whether they are equal bit for bit is printed), frames/s and the stage
+   table beside chunk=1's, the loop service per keyframe by stage and the
+   warmup's wall time. Then compact_map on the run's final map at the full
+   capacity shapes, on the card against the CPU (exact) with its
+   invariants and its time;
+5. a long session on sensor-noise draw 1 of the stereo-inertial path:
    104 frames with a map of 16 keyframe rows, so that compaction and the
    keyframe pressure evictions fire by themselves, held to the JAX
    reference of the same configuration
-   (orbslam3_tpu_torch/data/session_reference.json); the leaves of loop
+   (orbslam3_tpu_torch/data/session_reference.json), the main path's
+   accuracy under sensor noise (the band rule); the leaves of loop
    closing on the card against the CPU at real sizes (a k=10, 4-level
    vocabulary trained from the run's keyframe descriptors, sparse BoW
    vectors and scores, Sim3 RANSAC by reprojection at 256 hypotheses, the
-   pose graph at K=256); then a second full run on the noise-free frames,
-   alone on the card, stopped after frame 71, saved (save_map), loaded on
-   the card (load_map) and resumed in a new system (FusedSlam.from_state).
-   Its raw poses must equal the first run's bit for bit up to the
-   checkpoint and stay within 1 mm of it after (bit-equality is printed),
-   with no second IMU initialization; a torch.profiler window over the last
-   16 frames of the resumed part (visual-inertial pose solves and at least two
-   VI-BA keyframes) gives device time by kernel, the FAST/NMS kernel's own
-   time and launches per frame, and the device's busy share, of the
-   window's wall time and of the first run's untraced step. The profiled
-   run comes last: once the profiler has attached to the CUDA runtime every
-   later launch of the process costs more host time;
-6. accuracy of all paths against their JAX references, draw by draw
-   (check_accuracy).
+   pose graph at K=256); then a second run on the noise-free frames,
+   alone on the card, stopped after frame SAVE_AT - 1, saved (save_map), loaded on
+   the card (load_map) and resumed in a new system (FusedSlam.from_state)
+   for the frames up to SECOND_STOP. Its raw poses must equal the first
+   run's bit for bit up to the checkpoint and stay within 1 mm of it after
+   (bit-equality is printed), with no second IMU initialization; a
+   torch.profiler window over the last 16 of them (visual-inertial pose
+   solves and at least two VI-BA keyframes) gives device time by kernel,
+   the FAST/NMS kernel's own time and launches per frame, and the device's
+   busy share, of the window's wall time and of the first run's untraced
+   step. The profiled run comes last (after phase 6): once the profiler has
+   attached to the CUDA runtime every later launch of the process costs
+   more host time;
+7. accuracy of the odometry paths against their JAX references, draw by
+   draw (check_accuracy);
+6. loop closing, the path this slice adds, before the profiled run: (b) the
+   revisit world of bench.py::build_revisit_world (24 s, 480 frames, a
+   camera blackout at 10-13 s with an IMU bias step, a second lap over the
+   first; rendered by worker processes in the background from the start)
+   under BENCH_CFG with its vocabulary (data/vocab_revisit.npz),
+   chunk=8, service_every=8, warmup=True, MapCapacity() (K=256, M=32768),
+   held to the JAX reference of the same run (at least one correction, the
+   count within 1 of the reference's, the first correction on a keyframe
+   pair whose times are within 1 s of the reference's pair, as many merges,
+   a finite trajectory with one pose a frame), printing the relocalizations
+   beside the reference's (this world is chaotic after its blackout:
+   PERF.md), the service rounds in relocalization mode and the
+   verifications beside the reference's, ATE, LoopStats, the seams and per
+   correction the time of each stage, the host reads and the global BA's
+   size; (c) the
+   blackout-then-merge world of tests/test_fused_loop.py (384x256, 80
+   frames, visual only): a merge into
+   map 0, post-merge ATE < 0.15 m; (d) the first correction of (b) run
+   again twice on its recorded input state: poses and points equal bit for
+   bit to the run's; the verification of its query against its candidate and
+   the three keyframes before it on the card with fed samples against the
+   CPU (counts exact; the Sim3 and seam of those past the inlier gate within
+   1e-5); card times of the exhaustive detection product and of one
+   global-BA step.
 
 The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the kernels' JSON record comes before them.
@@ -87,9 +117,26 @@ HARD_WORLD = dict(texture="textured", exposure_drift=0.3, image_noise_std=3.0,
 DURATION = 8.0
 WARMUP = 8
 PROFILE_FRAMES = 16
-NOISE_SEEDS = (1,)  # the sensor-noise draw that runs here (the references hold 1 and 2)
 CHUNK = 8  # bench.py's frames per dispatch
-SAVE_AT = 72  # the second run is saved after frame 71 and resumed from frame 72
+SAVE_AT = 64  # the second run is saved after frame 63 (the IMU initializes after 63) ...
+SECOND_STOP = 88  # ... and resumed up to frame 87, the last 16 under the profiler
+STEREO_FRAMES = 40  # the stereo path's frames (no production configuration runs it)
+MAIN_FRAMES = 104  # the stereo-inertial path's frames at chunk 1 and, with the loop closer, 8
+# bench.py::build_revisit_world: a full-turn pan every 16 s, 16 s-periodic
+# position (the second lap revisits the first), noisy biased IMU, a camera
+# blackout with an IMU bias step at 10 s
+REVISIT_WORLD = dict(duration=24.0, n_landmarks=1500, seed=7, yaw_amp=0.0,
+                     yaw_rate=2 * 3.141592653589793 / 16.0, pos_freq=(0.125, 0.1875, 0.25),
+                     imu_noise=True, gyro_bias=(0.003, -0.002, 0.004),
+                     accel_bias=(0.03, 0.02, -0.04), bias_step_t=10.0,
+                     gyro_bias_step=(0.004, 0.003, -0.005), accel_bias_step=(0.15, -0.10, 0.10))
+REVISIT_BLACKOUT = (10.0, 13.0)
+# tests/test_fused_loop.py::test_blackout_then_merge
+MERGE_WORLD = dict(width=384, height=256, fx=240.0, fy=240.0, n_landmarks=600, duration=8.0,
+                   cam_hz=10.0, pos_amp=(1.0, 0.7, 0.25), yaw_amp=0.5)
+MERGE_BLACKOUT = (2.5, 3.3)
+MERGE_LOOP = dict(recent_gap=3, consistency_needed=2, covis_edge_weight_min=10,
+                  bow_min_score_gate=False)
 SESSION_FRAMES, SESSION_MAX_KF, SESSION_SEED = 104, 16, 1  # scripts/make_session_reference.py
 LAUNCHES_PER_FRAME = 1  # one fast_nms_levels launch for the whole pyramid
 KERNEL_NAME = "fast_nms_kernel"
@@ -343,40 +390,382 @@ def kernel_phase_chunk(frames, cam) -> dict:
                 frontend_fields_that_differ=sorted(differ))
 
 
-def chunk_run(world, times, frames, imu, first, first_fps, card):
-    """The main path's frames at chunk=CHUNK, service_every=8: one launch a
-    chunk, the IMU initialized at the chunk=1 run's frame, raw poses within
-    1 mm of the chunk=1 run `first` (equality bit for bit is printed)."""
+def load_vocab(name: str):
+    """A vocabulary the JAX references ran with (scripts/make_loop_reference.py)."""
+    from orbslam3_tpu_torch.loop import vocab as vb
+
+    return vb.load_npz(os.path.join(ROOT, "orbslam3_tpu_torch", "data", f"vocab_{name}.npz"))
+
+
+def loop_slam(cam, cfg, vocab, chunk=CHUNK, service_every=8, loop_cfg=None, device=None):
+    """FusedSlam with a loop closer, warmed up as bench.py builds it, its
+    stages timed with the device's work. Returns (slam, warmup seconds)."""
+    import torch
+
+    from orbslam3_tpu_torch.models.fused import FusedSlam
+
+    t0 = time.perf_counter()
+    kw = dict(device=device) if device else {}
+    slam = FusedSlam(cam, cfg, vocabulary=vocab, chunk=chunk, service_every=service_every,
+                     warmup=True, loop_cfg=loop_cfg, **kw)
+    if slam.device.type == "cuda":
+        torch.cuda.synchronize()
+    slam.loop_closer.timed_stages = True
+    return slam, time.perf_counter() - t0
+
+
+def loop_service_lines(path: str, slam, card: str):
+    """The loop closer's service by stage: per keyframe serviced (detection,
+    BoW-only, packet and verification reads, verification) and per
+    correction (each stage of loop_correct)."""
+    rep = slam.timing_report()
+    n_kf = sum(rep.get(k, {"calls": 0})["calls"] for k in ("loop_service", "loop_correct"))
+    parts = [f"{k} {rep[k]['mean_ms']:.2f} ms x {rep[k]['calls']}" for k in
+             ("loop_service", "loop_correct", "loop.detect", "loop.bow_only", "loop.packet_read",
+              "loop.verify", "loop.verify_read") if k in rep]
+    log(f"{path}: loop service over {n_kf} keyframe services (ms a call x calls): "
+        + ", ".join(parts) + f"  [{card}]")
+    for i, rec in enumerate(slam.loop_closer.corrections):
+        stages = ", ".join(f"{k[:-3]} {v:.1f}" for k, v in rec.items() if k.endswith("_ms"))
+        gba = ("none" if rec["gba"] is None else
+               f"{rec['gba'][0]} points in {rec['gba'][1]} tiles, {rec['gba'][2]} iterations")
+        vi = {None: "not run", True: "accepted", False: "rejected"}[rec["vi_refine"]]
+        log(f"{path}: correction {i + 1}: keyframe {rec['kf_id']} against {rec['cand']} "
+            f"({'merge' if rec['merge'] else 'loop'}{', relocalization' if rec['reloc'] else ''}), "
+            f"seam {rec['seam_m']:.3f} m, {rec['host_reads']} host reads, global BA {gba}, "
+            f"vi_refine {vi}; ms: {stages}  [{card}]")
+
+
+def loop_bench_run(world, times, frames, imu, first, first_fps, card, ref):
+    """(a) The main path's frames with the loop closer as bench.py's
+    fps_with_loop_closing runs it (chunk=CHUNK, service_every=8, warmup,
+    the world's vocabulary): one launch a chunk, no correction and the IMU
+    at the JAX reference's frame, raw poses within 1 mm of the chunk=1 run
+    `first` (equality bit for bit is printed)."""
     import numpy as np
 
     from orbslam3_tpu_torch.models.fused import BENCH_CFG
 
     n = len(times)
-    (slam, fps, syncs, _), launches = counted_run("stereo-inertial, chunk=8", world, times, frames,
-                                                  imu, BENCH_CFG, chunk=CHUNK)
+    slam, warm_s = loop_slam(world.cam, BENCH_CFG, load_vocab("bench"))
+    (_, fps, syncs, _), launches = counted_run("stereo-inertial, loop closing", world, times,
+                                               frames, imu, BENCH_CFG, chunk=CHUNK, slam=slam)
     a, b = slam.frame_outputs(), first.frame_outputs()
     same = bool(np.array_equal(a.p, b.p) and np.array_equal(a.q, b.q))
     d = np.linalg.norm(a.p - b.p, axis=1)
     moved = np.flatnonzero((a.p != b.p).any(axis=1) | (a.q != b.q).any(axis=1))
-    log(f"chunk={CHUNK}: {n} frames in {len(slam.outs)} dispatches, fast_nms launches {launches} "
+    st = slam.loop_closer.stats
+    log(f"loop closing, bench world (chunk={CHUNK}, service_every=8, warmup {warm_s:.2f} s): {n} "
+        f"frames in {len(slam.outs)} dispatches, fast_nms launches {launches} "
         f"({launches / len(slam.outs):g} a chunk), IMU initialized at frame {slam.imu_init_frame} "
-        f"(chunk=1: {first.imu_init_frame}), raw poses equal chunk=1's bit for bit: {same}"
+        f"(chunk=1: {first.imu_init_frame}, JAX {ref['imu_init_frame']}), {st} (JAX "
+        f"{ref['stats']}), raw poses equal chunk=1's bit for bit: {same}"
         + ("" if same else f" (first frame that differs {moved[0]}, largest position difference "
                            f"{d.max():.3e} m at frame {int(d.argmax())})"))
-    log(f"chunk={CHUNK}: {fps:.3f} frames/s after {WARMUP} warm-up frames (chunk=1 in this "
-        f"process: {first_fps:.3f}), host syncs/frame {syncs:.3f}, n_kf {int(slam.map.n_kf)} "
-        f"(chunk=1: {int(first.map.n_kf)})  [{card}]")
-    log(f"chunk={CHUNK} timing_report (host wall, ms/call): " + json.dumps(slam.timing_report()))
-    stage_table(f"stereo-inertial, chunk={CHUNK}", slam.timing_report(), card)
+    log(f"loop closing, bench world: {fps:.3f} frames/s after {WARMUP} warm-up frames (chunk=1 "
+        f"without loop closing in this process: {first_fps:.3f}), host syncs/frame {syncs:.3f}, "
+        f"n_kf {int(slam.map.n_kf)} (chunk=1: {int(first.map.n_kf)}, JAX {ref['n_kf']})  [{card}]")
+    log(f"loop closing, bench world timing_report (host wall, ms/call): "
+        + json.dumps(slam.timing_report()))
+    stage_table(f"stereo-inertial with loop closing, chunk={CHUNK}", slam.timing_report(), card)
+    loop_service_lines("loop closing, bench world", slam, card)
     if launches != n // CHUNK or len(slam.outs) != n // CHUNK:
-        raise AssertionError(f"chunk={CHUNK}: {launches} launches in {len(slam.outs)} dispatches "
-                             f"over {n} frames")
-    if slam.imu_init_frame != first.imu_init_frame or not slam.imu_initialized:
-        raise AssertionError(f"chunk={CHUNK}: IMU initialized at frame {slam.imu_init_frame}, "
-                             f"chunk=1 at {first.imu_init_frame}")
+        raise AssertionError(f"loop closing, bench world: {launches} launches in "
+                             f"{len(slam.outs)} dispatches over {n} frames")
+    if slam.imu_init_frame != ref["imu_init_frame"] or not slam.imu_initialized:
+        raise AssertionError(f"loop closing, bench world: IMU initialized at frame "
+                             f"{slam.imu_init_frame}, the JAX reference at {ref['imu_init_frame']}")
+    if st.corrected != ref["stats"]["corrected"]:
+        raise AssertionError(f"loop closing, bench world: {st.corrected} corrections, the JAX "
+                             f"reference {ref['stats']['corrected']}")
     if not d.max() <= 1e-3:
-        raise AssertionError(f"chunk={CHUNK}: raw poses leave chunk=1's by {d.max()} m (> 1 mm)")
-    return launches, fps
+        raise AssertionError(f"loop closing, bench world: raw poses leave chunk=1's by {d.max()} m "
+                             f"(> 1 mm)")
+    return launches, fps, warm_s
+
+
+def render_revisit_world() -> dict:
+    """Start rendering the revisit world in a background thread (its worker
+    processes are spawned and leave two cores to the main process); the
+    result is taken with `take_rendered`."""
+    import threading
+
+    from orbslam3_tpu_torch.io.synthetic import SyntheticConfig, SyntheticWorld
+
+    box = {}
+
+    def work():
+        try:
+            t0 = time.perf_counter()
+            world = SyntheticWorld(SyntheticConfig(**REVISIT_WORLD, **HARD_WORLD))
+            times = world.frame_times()
+            frames = world.render_sequence(times, blackout=REVISIT_BLACKOUT,
+                                           workers=max((os.cpu_count() or 2) - 2, 1))
+            box.update(world=world, times=times, frames=frames, seconds=time.perf_counter() - t0)
+        except BaseException as e:  # handed to the main thread by take_rendered
+            box["error"] = e
+
+    box["thread"] = threading.Thread(target=work, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def take_rendered(box: dict):
+    """(world, times, frames) of a render_revisit_world, waiting for it."""
+    t0 = time.perf_counter()
+    box["thread"].join()
+    if "error" in box:
+        raise box["error"]
+    log(f"revisit world: {len(box['times'])} frames {box['world'].cfg.width}x"
+        f"{box['world'].cfg.height} rendered in {box['seconds']:.1f} s in the background (waited "
+        f"{time.perf_counter() - t0:.1f} s for it here)")
+    return box["world"], box["times"], box["frames"]
+
+
+def revisit_run(card, ref, rendered):
+    """(b) The revisit world under BENCH_CFG with its vocabulary, as
+    bench.py's revisit pass runs it, held to the JAX reference of the same
+    run. Returns (slam, record, the first correction's recorded input and
+    output, launches)."""
+    import numpy as np
+    import torch
+
+    from orbslam3_tpu_torch.eval.metrics import ate_rmse
+    from orbslam3_tpu_torch.geometry.sim3 import Sim3
+    from orbslam3_tpu_torch.interop import to_device
+    from orbslam3_tpu_torch.models.fused import BENCH_CFG, MODE_OK
+
+    world, times, frames = take_rendered(rendered)
+    imu = [world.imu_window(times[i - 1] if i > 0 else t, t) for i, t in enumerate(times)]
+    slam, warm_s = loop_slam(world.cam, BENCH_CFG, load_vocab("revisit"))
+    cl = slam.loop_closer
+    first = {}
+    pair_times = []  # keyframe times of each correction's pair (rows move in compaction)
+    correct = cl._correct
+
+    def recorded(st, kf_id, cand, S_rel, cam, **kw):
+        pair_times.append(st.kf_time[torch.tensor([kf_id, cand], device=st.kf_time.device)]
+                          .tolist())
+        if not first:  # the first correction's input, for phase (d)
+            first.update(st=to_device(st, "cpu"), kf_id=kf_id, cand=cand,
+                         S=Sim3(*[a.clone() for a in S_rel]), kw=kw,
+                         edges=list(cl._loop_edges),
+                         gravity=None if cl.gravity_w is None else cl.gravity_w.clone())
+        out = correct(st, kf_id, cand, S_rel, cam, **kw)
+        if "out" not in first:
+            first["out"] = to_device(out, "cpu")
+        return out
+
+    cl._correct = recorded
+    services = []
+    on_keyframe, apply_verify = cl.on_keyframe, cl._apply_verify
+
+    def serviced(st, kf_id, cam, **kw):
+        services.append(["kf", kw["round_id"], kf_id, kw["reloc"]])
+        return on_keyframe(st, kf_id, cam, **kw)
+
+    def applied(st, cam, *a, **kw):
+        pending = cl._verify_pending
+        out = apply_verify(st, cam, *a, **kw)
+        if pending is not None and cl._verify_pending is None:
+            services.append(["verify", slam._service_round, pending[1], out[1]])
+        return out
+
+    cl.on_keyframe, cl._apply_verify = serviced, applied
+    torch.cuda.reset_peak_memory_stats()
+    (_, fps, syncs, _), launches = counted_run("revisit", world, times, frames, imu, BENCH_CFG,
+                                               chunk=CHUNK, slam=slam)
+    peak = torch.cuda.max_memory_allocated()
+    cl._correct, cl.on_keyframe, cl._apply_verify = correct, on_keyframe, apply_verify
+    n = len(times)
+    gt_p, _ = world.gt_trajectory()
+    _, ps, _ = slam.trajectory_arrays()
+    _, ps_raw, _ = slam.trajectory_arrays(corrected=False)
+    if ps.shape != (n, 3) or not np.all(np.isfinite(ps)):
+        raise AssertionError(f"revisit: trajectory not finite or of shape {ps.shape}")
+    st = cl.stats
+    corr = cl.corrections
+    for c, (t_kf, t_cand) in zip(corr, pair_times):
+        c["kf_time"], c["cand_time"] = t_kf, t_cand
+    rec = dict(ate=float(ate_rmse(ps, gt_p[:n])), ate_raw=float(ate_rmse(ps_raw, gt_p[:n])),
+               ok_frac=float((slam.modes() == MODE_OK).mean()), stats=st._asdict(),
+               n_kf=int(slam.map.n_kf), imu_init_frame=slam.imu_init_frame, fps=fps,
+               syncs=syncs, peak_mib=peak / 2**20, warmup_s=warm_s,
+               corrections=[dict(c) for c in corr])
+    odo = ref["odometry"]
+    log(f"revisit: {fps:.3f} frames/s after {WARMUP} warm-up frames, host syncs/frame "
+        f"{syncs:.3f}, warmup {warm_s:.2f} s, fast_nms launches {launches}, peak device memory "
+        f"{peak / 2**20:.1f} MiB (after its global BAs), IMU initialized at frame "
+        f"{slam.imu_init_frame} (JAX {ref['imu_init_frame']}), n_kf {rec['n_kf']} (JAX "
+        f"{ref['n_kf']}), compactions {slam.compactions} (JAX {ref['compactions']})  [{card}]")
+    log(f"revisit: ATE with loop closing {rec['ate']:.4f} m (JAX {ref['ate_m']:.4f}), raw "
+        f"{rec['ate_raw']:.4f} m (JAX {ref['ate_raw_m']:.4f}), odometry alone not run here (JAX "
+        f"{odo['ate_m']:.4f}), ok_frac {rec['ok_frac']:.4f} (JAX {ref['ok_frac']:.4f}); {st} "
+        f"(JAX {ref['stats']})")
+    for i, c in enumerate(ref["corrections"]):
+        log(f"revisit, JAX correction {i + 1}: frame {c['frame']}, round {c['service_round']}, "
+            f"keyframe {c['kf_id']} (t={c['kf_time']:.2f} s) against {c['cand']} "
+            f"(t={c['cand_time']:.2f} s), {'merge' if c['merge'] else 'loop'}"
+            f"{', relocalization' if c['reloc'] else ''}, seam {c['seam_m']:.3f} m, global BA "
+            f"{c['gba']}, vi_refine {c['vi_refine']}")
+    for i, c in enumerate(corr):
+        log(f"revisit, port correction {i + 1}: keyframe {c['kf_id']} (t={c['kf_time']:.2f} s) "
+            f"against {c['cand']} (t={c['cand_time']:.2f} s)")
+    reloc_rounds = sorted({e[1] for e in services if e[0] == "kf" and e[3]})
+    ref_reloc = sorted({e[1] for e in ref["services"] if e[0] == "kf" and e[4]})
+    log(f"revisit: service rounds in relocalization mode {reloc_rounds} (JAX {ref_reloc}); "
+        f"verifications (round, keyframe, corrected) "
+        f"{[tuple(e[1:]) for e in services if e[0] == 'verify']} (JAX, keyframe and corrected: "
+        f"{[tuple(e[1:]) for e in ref['services'] if e[0] == 'verify']})")
+    log("revisit timing_report (host wall, ms/call): " + json.dumps(slam.timing_report()))
+    stage_table("revisit", slam.timing_report(), card)
+    loop_service_lines("revisit", slam, card)
+    if launches != n // CHUNK:
+        raise AssertionError(f"revisit: {launches} launches over {n} frames")
+    ref_n = ref["stats"]["corrected"]
+    if st.corrected < 1 or abs(st.corrected - ref_n) > 1:
+        raise AssertionError(f"revisit: {st.corrected} corrections, the JAX reference {ref_n}")
+    r0 = ref["corrections"][0]
+    log(f"revisit: the first correction's query keyframe at t={corr[0]['kf_time']:.2f} s "
+        f"({corr[0]['kf_time'] - r0['kf_time']:+.2f} s from the reference's), its candidate at "
+        f"t={corr[0]['cand_time']:.2f} s ({corr[0]['cand_time'] - r0['cand_time']:+.2f} s); "
+        f"relocalizations {st.relocalized} (JAX {ref['stats']['relocalized']})")
+    if not (abs(corr[0]["kf_time"] - r0["kf_time"]) <= 1.0
+            and abs(corr[0]["cand_time"] - r0["cand_time"]) <= 1.0):
+        raise AssertionError(f"revisit: the first correction on keyframes at t="
+                             f"{corr[0]['kf_time']:.2f} / {corr[0]['cand_time']:.2f} s, the "
+                             f"reference's at {r0['kf_time']:.2f} / {r0['cand_time']:.2f} s")
+    merges = sum(c["merge"] for c in corr)
+    ref_merges = sum(c["merge"] for c in ref["corrections"])
+    if merges != ref_merges:
+        raise AssertionError(f"revisit: {merges} merges, the reference {ref_merges}")
+    return slam, rec, first, launches
+
+
+def merge_run(card):
+    """(c) The blackout-then-merge world of tests/test_fused_loop.py, at its
+    own size: a merge into map 0 and post-merge ATE < 0.15 m."""
+    import numpy as np
+
+    from orbslam3_tpu_torch.eval.metrics import ate_rmse
+    from orbslam3_tpu_torch.frontend.orb import OrbConfig
+    from orbslam3_tpu_torch.io.synthetic import SyntheticConfig, SyntheticWorld
+    from orbslam3_tpu_torch.loop.closer import LoopConfig
+    from orbslam3_tpu_torch.map.slam_map import MapCapacity
+    from orbslam3_tpu_torch.models.slam import SlamConfig
+    from orbslam3_tpu_torch.models.tracker import TrackConfig
+
+    world = SyntheticWorld(SyntheticConfig(**MERGE_WORLD))
+    times = world.frame_times()
+    blank = np.full((world.cfg.height, world.cfg.width), 127, np.uint8)
+    frames = [(blank, blank) if MERGE_BLACKOUT[0] <= t < MERGE_BLACKOUT[1]
+              else world.render_frame(t) for t in times]
+    imu = [(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0))] * len(times)
+    cfg = SlamConfig(orb=OrbConfig(n_features=384, n_levels=4),
+                     cap=MapCapacity(max_kf=96, n_feat=384, max_mp=8192, max_obs=8),
+                     track=TrackConfig(p_local=2048), ba_points=1024, use_imu=False,
+                     kf_max_frames=2, lost_timeout=0.3, min_kfs_keep_map=5)
+    slam, warm_s = loop_slam(world.cam, cfg, load_vocab("merge"), chunk=1, service_every=2,
+                             loop_cfg=LoopConfig(**MERGE_LOOP))
+    (_, fps, _, _), launches = counted_run("merge", world, times, frames, imu, cfg, slam=slam)
+    _, ps, _ = slam.trajectory_arrays()
+    gt_p, _ = world.gt_trajectory()
+    post = times > MERGE_BLACKOUT[1] + 2.0
+    ate_post = float(ate_rmse(ps[post], gt_p[post]))
+    kv = slam.map.kf_valid.cpu().numpy()
+    maps = set(slam.map.kf_map_id.cpu().numpy()[kv].tolist())
+    st = slam.loop_closer.stats
+    log(f"merge world: {len(times)} frames, {st}, keyframes' maps {sorted(maps)}, post-merge ATE "
+        f"{ate_post:.4f} m, {fps:.3f} frames/s, fast_nms launches {launches}  [{card}]")
+    loop_service_lines("merge world", slam, card)
+    if st.corrected < 1 or maps != {0} or not ate_post < 0.15:
+        raise AssertionError(f"merge world: corrected {st.corrected}, maps {maps}, post-merge ATE "
+                             f"{ate_post:.4f} m (needs >= 1, {{0}}, < 0.15)")
+    return launches, ate_post
+
+
+def loop_reproducibility(first, vocab, cfg, cam, card) -> dict:
+    """(d) The revisit run's first correction again, twice, on its recorded
+    input state on the card: poses and points equal bit for bit to the
+    run's; the verification of its query on the card with fed samples
+    against the CPU (counts exact, the Sim3 and seam of the candidates past
+    the inlier gate within 1e-5); card times of the exhaustive detection
+    product at the full row count and of one global-BA step."""
+    import torch
+
+    from orbslam3_tpu_torch.interop import to_device
+    from orbslam3_tpu_torch.loop import closer as lc
+    from orbslam3_tpu_torch.loop.sim3 import draw_samples
+    from orbslam3_tpu_torch.parallel.distributed_ba import global_ba, make_point_table
+
+    dev = torch.device("cuda")
+    st = to_device(first["st"], dev)
+    outs = []
+    for _ in range(2):
+        closer = lc.LoopCloser(vocab.to(dev), cfg)
+        closer._loop_edges = list(first["edges"])
+        closer.gravity_w = first["gravity"]
+        outs.append(to_device(closer._correct(st, first["kf_id"], first["cand"], first["S"], cam,
+                                              **first["kw"]), "cpu"))
+    names = ("kf_q", "kf_p", "kf_v", "mp_pos")
+    same = [all(torch.equal(getattr(o, k), getattr(first["out"], k)) for k in names) for o in outs]
+    log(f"reproducible: the revisit run's first correction (keyframe {first['kf_id']} against "
+        f"{first['cand']}, pose graph, seam fusion, global BA, vi_refine) run twice more on its "
+        f"recorded input: poses and points equal to the run's bit for bit: {same}  [{card}]")
+    if not all(same):
+        raise AssertionError("two runs of _correct on one state gave other poses than the run's")
+
+    # the correction's candidate and three keyframes just before the query
+    # (they share its points: well-conditioned Sim3s)
+    kf = first["kf_id"]
+    cands = [first["cand"]] + [max(kf - d, 0) for d in (1, 2, 3)]
+    samples = {}
+
+    def fed(m):
+        """The same draws for both devices, made on the CPU from the card's
+        RANSAC masks."""
+        if "s" not in samples:
+            samples["s"] = torch.stack([draw_samples(m[c].cpu(), lc.N_HYP,
+                                                     torch.Generator().manual_seed(c))
+                                        for c in range(m.shape[0])])
+        return samples["s"].to(m.device)
+
+    got = lc._verify_program(st, kf, cands, cam, cfg.match_hamming_max, cfg.sim3_chi2,
+                             cfg.reproj_radius, samples=fed)
+    want = lc._verify_program(first["st"], kf, cands, cam.to("cpu"), cfg.match_hamming_max,
+                              cfg.sim3_chi2, cfg.reproj_radius, samples=fed)
+    for name, a, b in zip(("nm", "ninl", "nrp"), got[:3], want[:3]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"verification on the card: {name} {a.tolist()} != CPU "
+                                 f"{b.tolist()}")
+    # the Sim3 and seam of every candidate that passes the inlier gate (a
+    # failed one's Sim3, from a handful of inliers, is never used)
+    passed = want[1] >= cfg.min_sim3_inliers
+    err = max((float((a.cpu() - b)[passed].abs().max())
+               for a, b in zip((got[3], *got[4]), (want[3], *want[4]))), default=float("inf"))
+    log(f"verification of keyframe {kf} against {cands} on the card with fed samples: nm "
+        f"{got[0].tolist()}, ninl {got[1].tolist()}, nrp {got[2].tolist()} equal to the CPU's; "
+        f"the Sim3 and seam of the {int(passed.sum())} past the inlier gate within {err:.1e} of "
+        f"the CPU's  [{card}]")
+    if not (bool(passed.any()) and err <= 1e-5):
+        raise AssertionError(f"verification on the card: Sim3 / seam leave the CPU's by {err}")
+
+    # card times of the hot operations: the exhaustive match counts over all
+    # keyframe rows, and one GN step of global BA at the full point budget
+    K = st.kf_valid.shape[0]
+    det_ms = cuda_ms(lambda: lc._mutual_counts(st.kf_desc[kf], st.kf_feat_valid[kf],
+                                               st.kf_desc, st.kf_feat_valid,
+                                               cfg.match_hamming_max), 5)
+    P = -(-min(cfg.gba_max_points, st.mp_pos.shape[0]) // cfg.gba_tile) * cfg.gba_tile
+    pts, _ = make_point_table(st, P, cfg.gba_obs)
+    opt = st.kf_valid & (torch.arange(K, device=dev) != first["cand"])
+    gba_ms = cuda_ms(lambda: global_ba(pts, st.kf_q, st.kf_p, opt, cam, iters=1,
+                                       tile=cfg.gba_tile), 2)
+    n_pts = int(pts.pt_valid.sum())
+    log(f"hot operations on the card (CUDA events): exhaustive match counts of one keyframe "
+        f"against {K} rows {det_ms:.2f} ms; one global-BA step over {n_pts} points in "
+        f"{P // cfg.gba_tile} tiles of {cfg.gba_tile}, {K} keyframes {gba_ms:.1f} ms  [{card}]")
+    return dict(detect_ms=det_ms, gba_step_ms=gba_ms, gba_points=n_pts)
 
 
 def compaction_check(slam, card):
@@ -668,6 +1057,8 @@ def run_slice(world, times, frames, imu, cfg, device=None, profile_at=None, chun
         if i == start + WARMUP:
             sync()
             slam.timing.clear()
+            if slam.loop_closer is not None:
+                slam.loop_closer.timing.clear()
             syncs0 = slam.host_syncs
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
@@ -725,28 +1116,37 @@ def log_accuracy(path: str, draws):
             f"(JAX {d['jax']['ok_frac']:.4f}), n_kf {d['n_kf']} (JAX {d['jax']['n_kf']}){imu}")
 
 
-def check_accuracy(path: str, draws):
-    """One path of the port against its JAX reference, draw by draw.
-
-    Every draw keeps ok_frac within 0.05 of the reference's, initializes
-    the IMU at the reference's frame (never, on the stereo path); every
-    stereo-inertial draw ends within 2 keyframe rows of the reference's
-    count. Every sensor-noise draw
-    lands within band(ATE_jax) of the reference's ATE on the same draw, and,
-    where three draws run, the median ATE over them within band of the
-    reference's median (one noise draw runs now: NOISE_SEEDS). The
-    noise-free draw's own ATE is reported, not held, on both paths. On the
-    stereo path the reference sits on an exact float32 tie of the keyframe
-    gate (frame 56, 133 inliers against 0.7 * 190), and a single BRIEF bit
-    that float32 rounding flips on the way decides the branch. On the
-    stereo-inertial path the same front-end bits meet a keyframe gate that
-    the reference passes by 2.1 inliers (frame 88), and the run was measured
-    to leave the reference's branch there while both noise draws stay within
-    1e-4 m of it; fed the JAX front end's features the port stays on the
-    reference's branch (scripts/vi_backend_witness.py, PERF.md);
-    `first_divergence` prints where."""
+def prefix_record(ref: dict, n: int, gt_p) -> dict:
+    """A noise-free JAX reference over its first n frames, from its
+    per-frame record: ATE, ok_frac, keyframes inserted, the IMU's frame."""
     import numpy as np
 
+    from orbslam3_tpu_torch.eval.metrics import ate_rmse
+
+    pf = ref["per_frame"]
+    init = ref.get("imu_init_frame")
+    return dict(ate_m=float(ate_rmse(np.asarray(pf["p"][:n], np.float32), gt_p[:n])),
+                ok_frac=float(np.mean(np.asarray(pf["mode"][:n]) == 1)),
+                n_kf=int(np.sum(pf["is_kf"][:n])),
+                imu_init_frame=init if init is not None and init < n else None)
+
+
+def check_accuracy(path: str, draws):
+    """One path of the port against its JAX reference over the same frames
+    (the noise-free draw; the main path's accuracy under sensor noise is
+    held by the session, phase 5b).
+
+    Every draw keeps ok_frac within 0.05 of the reference's, initializes the
+    IMU at the reference's frame (never, on the stereo path); every
+    stereo-inertial draw ends within 2 keyframe rows of the reference's
+    count. The noise-free ATE is reported, not held: on the stereo path the
+    reference sits on an exact float32 tie of the keyframe gate (frame 56,
+    133 inliers against 0.7 * 190), and a single BRIEF bit that float32
+    rounding flips on the way decides the branch; on the stereo-inertial
+    path the same front-end bits meet a keyframe gate that the reference
+    passes by 2.1 inliers (frame 88); fed the JAX front end's features the
+    port stays on the reference's branch (scripts/vi_backend_witness.py,
+    PERF.md); `first_divergence` prints where."""
     for d in draws:
         if d["imu_init_frame"] != d["jax"].get("imu_init_frame"):
             raise AssertionError(f"{path}, draw {d['seed']}: IMU initialized at frame "
@@ -758,27 +1158,16 @@ def check_accuracy(path: str, draws):
         if d["ok_frac"] < d["jax"]["ok_frac"] - 0.05:
             raise AssertionError(f"{path}, draw {d['seed']}: ok_frac {d['ok_frac']:.4f} below the "
                                  f"JAX reference {d['jax']['ok_frac']:.4f} - 0.05")
-        if d["seed"] is not None and abs(d["ate"] - d["jax"]["ate_m"]) > band(d["jax"]["ate_m"]):
-            raise AssertionError(f"{path}, draw {d['seed']}: ATE {d['ate']:.4f} m outside the JAX "
-                                 f"band {d['jax']['ate_m']:.4f} +- {band(d['jax']['ate_m']):.4f}")
-    if len(draws) < 3:  # with the noise-free knife edge among two draws a median says nothing
-        return
-    med = float(np.median([d["ate"] for d in draws]))
-    med_jax = float(np.median([d["jax"]["ate_m"] for d in draws]))
-    log(f"accuracy, {path}: median ATE over {len(draws)} draws {med:.5f} m, JAX {med_jax:.5f} m "
-        f"(band +-{band(med_jax):.4f})")
-    if abs(med - med_jax) > band(med_jax):
-        raise AssertionError(f"{path}: median ATE {med:.4f} m outside the JAX band "
-                             f"{med_jax:.4f} +- {band(med_jax):.4f}")
 
 
 def second_run_and_profile(world, times, frames, imu, first, card) -> float:
-    """A second full stereo-inertial run through a checkpoint: frames
-    [0, SAVE_AT) in one system, save_map, load_map on the card,
-    FusedSlam.from_state, the remaining frames in the resumed system. Its
-    raw poses must equal `first`'s bit for bit before the checkpoint and
-    stay within 1 mm of it after; the IMU state is carried (no second
-    initialization). A torch.profiler window sits in the resumed part.
+    """A second stereo-inertial run through a checkpoint: frames [0,
+    SAVE_AT) in one system, save_map, load_map on the card,
+    FusedSlam.from_state, frames [SAVE_AT, SECOND_STOP) in the resumed
+    system. Its raw poses must equal `first`'s bit for bit before the
+    checkpoint and stay within 1 mm of it after; the IMU state is carried
+    (no second initialization). A torch.profiler window closes the resumed
+    part.
     Prints device time by kernel; returns the FAST/NMS kernel's device
     milliseconds per frame."""
     import tempfile
@@ -788,7 +1177,7 @@ def second_run_and_profile(world, times, frames, imu, first, card) -> float:
     from orbslam3_tpu_torch.map.checkpoint import load_map, save_map
     from orbslam3_tpu_torch.models.fused import BENCH_CFG, FusedSlam
 
-    n = len(times)
+    n = SECOND_STOP
     if not first.imu_init_frame < SAVE_AT:
         raise AssertionError(f"the checkpoint at frame {SAVE_AT} comes before the IMU "
                              f"initialized (frame {first.imu_init_frame})")
@@ -813,13 +1202,13 @@ def second_run_and_profile(world, times, frames, imu, first, card) -> float:
     if not resumed.imu_initialized or resumed.device.type != "cuda":
         raise AssertionError("the resumed system lost the IMU state or left the card")
     _, _, _, (prof, wall) = run_slice(world, times, frames, imu, BENCH_CFG, slam=resumed,
-                                      start=SAVE_AT, profile_at=p0)
+                                      start=SAVE_AT, stop=n, profile_at=p0)
     if resumed.imu_init_frame is not None or "imu_init" in resumed.timing:
         raise AssertionError("the resumed system initialized the IMU a second time")
     a, b, c = head.frame_outputs(), resumed.frame_outputs(), first.frame_outputs()
     same_head = bool(np.array_equal(a.p, c.p[:SAVE_AT]) and np.array_equal(a.q, c.q[:SAVE_AT]))
-    same_tail = bool(np.array_equal(b.p, c.p[SAVE_AT:]) and np.array_equal(b.q, c.q[SAVE_AT:]))
-    far = float(np.linalg.norm(b.p - c.p[SAVE_AT:], axis=1).max())
+    same_tail = bool(np.array_equal(b.p, c.p[SAVE_AT:n]) and np.array_equal(b.q, c.q[SAVE_AT:n]))
+    far = float(np.linalg.norm(b.p - c.p[SAVE_AT:n], axis=1).max())
     log(f"reproducible: a second stereo-inertial run's raw poses equal the first run's bit for "
         f"bit over frames 0..{SAVE_AT - 1}: {same_head}; resumed from the checkpoint over frames "
         f"{SAVE_AT}..{n - 1}: bit for bit {same_tail}, largest position difference {far:.3e} m, "
@@ -865,17 +1254,6 @@ def noisy(frames, seed: int):
     return _DRAWS[seed]
 
 
-def noise_draws(path, world, times, frames, imu, cfg, gt_p, card) -> dict:
-    """A full run of one path under each sensor-noise draw; {seed: record}."""
-    records = {}
-    for seed in NOISE_SEEDS:
-        slam, fps, _, _ = run_slice(world, times, noisy(frames, seed), imu, cfg)
-        records[seed] = accuracy(slam, gt_p, len(times))
-        log(f"  {path}, draw seed {seed}: {fps:.3f} frames/s, keyframes culled "
-            f"{int(slam.map.n_kf) - int(slam.map.kf_valid.sum())}  [{card}]")
-    return records
-
-
 def stage_table(path: str, report: dict, card: str):
     """The step's host wall time by stage, from timing_report(): mean per
     call, calls, and share of the whole step's time over the timed frames."""
@@ -894,8 +1272,9 @@ def first_divergence(slam, ref) -> str:
     than 1 mm), with the reference's margin to the keyframe gate there."""
     import numpy as np
 
-    outs, pf = slam.frame_outputs(), ref["per_frame"]
+    outs = slam.frame_outputs()
     _, ps, _ = slam.trajectory_arrays()
+    pf = {k: v[:len(ps)] for k, v in ref["per_frame"].items()}
     parts = []
     for name, got in (("is_kf", outs.is_kf.astype(int)), ("n_matches", outs.n_matches),
                       ("n_inliers", outs.n_inliers)):
@@ -947,6 +1326,7 @@ def main() -> int:
     world, times, frames, imu = build_world()
     log(f"world: {len(times)} frames {world.cfg.width}x{world.cfg.height} rendered in "
         f"{time.perf_counter() - t0:.1f} s")
+    revisit_frames = render_revisit_world()
 
     # ---- 0. the card
     phase("0 the card, 1 build, 2 kernel")
@@ -981,9 +1361,11 @@ def main() -> int:
         ref_vi = json.load(f)
     with open(os.path.join(data, "session_reference.json")) as f:
         ref_session = json.load(f)
-    n = len(times)
+    with open(os.path.join(data, "loop_reference.json")) as f:
+        ref_loop = json.load(f)
+    n = STEREO_FRAMES
     (slam, fps, syncs_per_frame, _), launches_stereo = counted_run(
-        "stereo", world, times, frames, imu, SLICE_CFG)
+        "stereo", world, times[:n], frames[:n], imu[:n], SLICE_CFG)
     log(f"stereo: {n} frames, n_kf {int(slam.map.n_kf)} (JAX {ref_stereo['n_kf']}), "
         f"n_mp {int(slam.map.n_mp)} (JAX {ref_stereo['n_mp']})")
     log(f"stereo: {fps:.3f} frames/s after {WARMUP} warm-up frames, host syncs/frame "
@@ -996,12 +1378,11 @@ def main() -> int:
     records = {("stereo", None): accuracy(slam, gt_p, n)}
     log("stereo, noise-free against the reference: " + first_divergence(slam, ref_stereo))
     del slam
-    for seed, rec in noise_draws("stereo", world, times, frames, imu, SLICE_CFG, gt_p,
-                                 card).items():
-        records[("stereo", seed)] = rec
 
     # ---- 4. the stereo-inertial path (BENCH_CFG): the main path
     phase("4 stereo-inertial path")
+    n = MAIN_FRAMES
+    times, frames, imu = times[:n], frames[:n], imu[:n]
     (vi, fps, syncs_per_frame, _), launches = counted_run(
         "stereo-inertial", world, times, frames, imu, BENCH_CFG)
     peak = torch.cuda.max_memory_allocated()
@@ -1025,33 +1406,44 @@ def main() -> int:
     records[("stereo-inertial", None)] = accuracy(vi, gt_p, n)
     log("stereo-inertial, noise-free against the reference: " + first_divergence(vi, ref_vi))
 
-    phase("4b the same frames at chunk=8; compact_map at full capacity")
-    launches_chunk, fps_chunk = chunk_run(world, times, frames, imu, vi, fps, card)
+    phase("4b (a) the same frames with the loop closer at chunk=8; compact_map at full capacity")
+    launches_chunk, fps_chunk, warm_a = loop_bench_run(world, times, frames, imu, vi, fps, card,
+                                                       ref_loop["bench"])
     compaction_check(vi, card)
 
     # ---- 5. the path's noise draws, the long session, the leaves of loop
     # closing; then a second full run through a checkpoint: equal poses, and a
     # profiler window after the IMU initialized (device time by kernel)
-    phase("5 stereo-inertial noise draws")
-    for seed, rec in noise_draws("stereo-inertial", world, times, frames, imu, BENCH_CFG, gt_p,
-                                 card).items():
-        records[("stereo-inertial", seed)] = rec
     phase("5b the long session: 16 keyframe rows, compaction by itself")
     session = session_run(world, times, frames, imu, gt_p, card)
     phase("5c the leaves of loop closing on the card")
     leaves_phase(vi, vi.cam, card)
-    phase("5d the second run, through a checkpoint, with the profiler window")
+
+    # ---- 6. loop closing: the revisit world, the merge world, the first
+    # correction again on its recorded state
+    phase("6b loop closing: the revisit world (480 frames)")
+    rv, rv_rec, rv_first, launches_revisit = revisit_run(card, ref_loop["revisit"],
+                                                         revisit_frames)
+    rv_cam, rv_cfg = rv.cam, rv.loop_closer.cfg
+    del rv
+    phase("6c loop closing: the merge world")
+    launches_merge, ate_merge = merge_run(card)
+    phase("6d loop closing: the first correction again, its verification against the CPU")
+    hot = loop_reproducibility(rv_first, load_vocab("revisit"), rv_cfg, rv_cam, card)
+    del rv_first
+
+    phase("5d the second run, through a checkpoint, with the profiler window (last)")
     us_frame = second_run_and_profile(world, times, frames, imu, vi, card)
     del vi
 
-    # ---- 6. both paths against their JAX references (last, so a failing run
-    # still shows where its time went)
-    phase("6 accuracy")
+    # ---- 7. the odometry paths against their JAX references (last, so a
+    # failing run still shows where its time went)
+    phase("7 accuracy")
     draws = {}
-    for path, ref in (("stereo", ref_stereo), ("stereo-inertial", ref_vi)):
-        by_seed = {d["seed"]: d for d in ref["draws"]}
-        draws[path] = [dict(seed=seed, jax=by_seed[seed], **records[(path, seed)])
-                       for seed in (None,) + NOISE_SEEDS]
+    for path, ref, n_run in (("stereo", ref_stereo, STEREO_FRAMES),
+                             ("stereo-inertial", ref_vi, MAIN_FRAMES)):
+        draws[path] = [dict(seed=None, jax=prefix_record(ref, n_run, gt_p),
+                            **records[(path, None)])]
         log_accuracy(path, draws[path])
     for path in draws:
         check_accuracy(path, draws[path])
@@ -1059,10 +1451,15 @@ def main() -> int:
 
     log(json.dumps({"kernels": [{
         "name": "fast_nms", "route": "cuda", "source": "orbslam3_tpu_torch/csrc/fast_nms.cu",
-        "replaces": "orbslam3_tpu/ops/fast_pallas.py:147", "launches": launches,
+        "replaces": "orbslam3_tpu/ops/fast_pallas.py:147", "launches": launches_revisit,
         "launches_by_path": {"stereo": launches_stereo, "stereo_inertial": launches,
-                             "stereo_inertial_chunk8": launches_chunk},
+                             "loop_bench_chunk8": launches_chunk,
+                             "loop_revisit_chunk8": launches_revisit,
+                             "loop_merge": launches_merge},
         "chunk8": {**kern16, "frames_per_s": fps_chunk, "chunk1_frames_per_s": fps},
+        "loop": {"bench_warmup_s": warm_a, "revisit": {k: v for k, v in rv_rec.items()
+                                                        if k != "corrections"},
+                 "merge_post_ate_m": ate_merge, **hot},
         "library_ms": None, "profile_ms": us_frame / 1e3,
         "earlier_ms_is": "8 one-level launches of this kernel, the call pattern before the "
                          "levels were fused, timed in this run",

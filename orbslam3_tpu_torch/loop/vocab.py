@@ -13,7 +13,9 @@ Port of orbslam3_tpu/loop/vocab.py:
     gather and reduce;
   * the DBoW2 text-format loader for ORBvoc.txt files, with per-level
     validity masks for under-full nodes (padded child slots never win the
-    argmin).
+    argmin);
+  * a compressed npz of the tree (`save_npz` / `load_npz`), how the
+    repository ships the vocabularies its reference runs used.
 
 `train_vocabulary` builds a tree from a descriptor corpus by recursive
 binary k-means (majority-bit centers, Hamming assignment), the construction
@@ -337,3 +339,25 @@ def load_dbow2_text(path: str) -> Vocabulary:
         levels,
         tuple(level_valid),
     )
+
+
+def save_npz(vocab: Vocabulary, path: str):
+    """The tree as a compressed npz: per-level node centres and validity
+    masks, idf, k and the level count."""
+    arrays = {"idf": vocab.idf.cpu().numpy(), "k": np.int64(vocab.k),
+              "levels": np.int64(vocab.levels)}
+    for lv in range(vocab.levels):
+        arrays[f"desc_{lv}"] = vocab.level_desc[lv].cpu().numpy()
+        if len(vocab.level_valid) > lv:
+            arrays[f"valid_{lv}"] = vocab.level_valid[lv].cpu().numpy()
+    np.savez_compressed(path, **arrays)
+
+
+def load_npz(path: str) -> Vocabulary:
+    """A tree written by `save_npz`, as CPU tensors."""
+    with np.load(path) as z:
+        levels = int(z["levels"])
+        desc = tuple(torch.from_numpy(z[f"desc_{lv}"]) for lv in range(levels))
+        valid = tuple(torch.from_numpy(z[f"valid_{lv}"]) for lv in range(levels)
+                      if f"valid_{lv}" in z)
+        return Vocabulary(desc, torch.from_numpy(z["idf"]), int(z["k"]), levels, valid)

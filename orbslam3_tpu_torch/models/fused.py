@@ -4,8 +4,8 @@ Port of orbslam3_tpu/models/fused.py: `TrackState`, `FrameOut`, the front
 end for one frame or a whole chunk of frames, `_slam_step_core`,
 `slam_step_chunk` and `FusedSlam` with its host services (IMU
 initialization, time-phased refinement, the static-start reset, map
-compaction with its pressure evictions), checkpoint resume (`from_state`)
-and chunked dispatch. The JAX package runs the whole step as one XLA program
+compaction with its pressure evictions, loop closing), checkpoint resume
+(`from_state`) and chunked dispatch. The JAX package runs the whole step as one XLA program
 with lax.cond branches, and a chunk as a lax.scan over it; here the step
 runs eagerly on the state's device, a chunk is the batched front end
 followed by a Python loop over the step's back end, and each lax.cond
@@ -15,9 +15,10 @@ became:
   (`FusedSlam._sync`): the lost-timeout reset, the keyframe insert, the
   map-point cull, whether tracking held, the active map's keyframe count
   (it decides local BA, triangulation, fusion, point statistics and the
-  keyframe cull inside the insert), and the tracker mode and row counts the
-  host services want. After a lost-timeout reset the active map is empty,
-  so the host knows the count without a second read;
+  keyframe cull inside the insert), and the tracker mode, row counts and
+  atlas size the host services want. After a lost-timeout reset the active
+  map is empty, so the host knows the count without a second read, and the
+  atlas size by whether the reset archived the map;
 * torch.where over both results, for the reference-keyframe Hamming
   fallback and the RANSAC seed that follows it (one (N, N) Hamming matrix
   and 128 three-point hypotheses a frame);
@@ -28,7 +29,10 @@ became:
   IMU-initialization service, so the host knows it, as it knows whether the
   frame came with IMU samples.
 
-`FusedSlam` refuses (NotImplementedError) a vocabulary (loop closing).
+With a vocabulary `FusedSlam` runs the loop closer (loop/closer.py) in its
+service rounds, on the JAX host's cadence: each round acts on the keyframe
+count, atlas size and tracker mode as of the round before (the host
+mirrors them from the per-frame flag reads, so this costs no read).
 """
 from __future__ import annotations
 
@@ -189,7 +193,9 @@ def _ref_kf_match(st: sm.MapState, kf, featL, max_hamming: int):
 
 
 def _where_tree(c, a, b):
-    return type(a)(*[torch.where(c, x, y) for x, y in zip(a, b)])
+    """torch.where over every leaf of two (nested) NamedTuples."""
+    return type(a)(*[_where_tree(c, x, y) if isinstance(x, tuple) else torch.where(c, x, y)
+                     for x, y in zip(a, b)])
 
 
 class StepFlags(NamedTuple):
@@ -200,6 +206,7 @@ class StepFlags(NamedTuple):
     mode: int  # tracker mode after the step
     n_kf: int  # keyframe rows in use after the step
     n_mp: int  # map-point rows in use before the step's insert
+    next_map_id: int  # the atlas's next map id after the step
 
 
 def _ransac_seed(t: float) -> int:
@@ -339,15 +346,16 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
     n_active = sm.count_map_keyframes(st, st.active_map)
     mode_out = torch.where(want_init & has_room, i32(MODE_OK), mode)
 
-    f_lost, f_kf, f_cull, f_tracked, n_active_h, mode_h, n_kf_h, n_mp_h = sync(torch.stack(
-        [lost_timeout.to(I32), is_kf.to(I32), cull_due.to(I32), tracked_ok.to(I32), n_active,
-         mode_out, st.n_kf, st.n_mp]))
+    f_lost, f_kf, f_cull, f_tracked, n_active_h, mode_h, n_kf_h, n_mp_h, next_map_h = sync(
+        torch.stack([lost_timeout.to(I32), is_kf.to(I32), cull_due.to(I32), tracked_ok.to(I32),
+                     n_active, mode_out, st.n_kf, st.n_mp, st.next_map_id]))
     lap("decide_and_flag_read")
 
     if f_lost:  # atlas: lost beyond timeout -> reset or new map
         small = sm.reset_active_map(st)
         big = sm.create_new_map(st)
         st = _where_tree(n_active < cfg.min_kfs_keep_map, small, big)
+        next_map_h += n_active_h >= cfg.min_kfs_keep_map
         n_active_h = 0  # either way the active map holds no keyframe now
     n_in_map = n_active_h + 1  # after this frame's insert
 
@@ -456,7 +464,8 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
         rel_p=quat.rotate(quat.conj(q_ref), ts.p - p_ref),
     )
     lap("bookkeeping")
-    return st, ts, out, StepFlags(bool(f_lost), bool(f_kf), mode_h, n_kf_h + bool(f_kf), n_mp_h)
+    return st, ts, out, StepFlags(bool(f_lost), bool(f_kf), mode_h, n_kf_h + bool(f_kf), n_mp_h,
+                                  next_map_h)
 
 
 def slam_step_chunk(st: sm.MapState, ts: TrackState, lefts, rights, gyro, acc, dts, imu_mask,
@@ -479,7 +488,32 @@ def slam_step_chunk(st: sm.MapState, ts: TrackState, lefts, rights, gyro, acc, d
             imu_ok=imu_ok, have_imu_host=have_imu_host[i], lap=lap, fe=_frontend_frame(fe, i))
         outs.append(out)
         flags.append(fl)
-    return st, ts, FrameOut(*[torch.stack(f) for f in zip(*outs)]), flags
+    outs = FrameOut(*[torch.stack(f) for f in zip(*outs)])
+    lap("chunk_outputs")
+    return st, ts, outs, flags
+
+
+def _retarget_tracker(ts: TrackState, q_old, p_old, q_new, p_new,
+                      rotate_gravity: bool = False) -> TrackState:
+    """Apply a loop or merge correction's world-frame delta to the live
+    tracker state. ts was estimated while keyframe k sat at (q_old, p_old);
+    the correction moved k to (q_new, p_new), i.e. world points were remapped
+    by T_delta = T_new . T_old^-1. The motion deltas are body-relative and
+    invariant under it.
+
+    Gravity belongs to the map's world frame: a same-map correction folds
+    the drifted segment back into the unchanged anchor frame, so gravity
+    stays (rotating it would tilt it by the drift rotation). Only a
+    cross-map merge (rotate_gravity=True) re-expresses the tracker's whole
+    world frame, and then gravity moves with it."""
+    qd = quat.normalize(quat.mul(q_new, quat.conj(q_old)))
+    pd = p_new - quat.rotate(qd, p_old)
+    return ts._replace(
+        q=quat.normalize(quat.mul(qd, ts.q)),
+        p=quat.rotate(qd, ts.p) + pd,
+        v=quat.rotate(qd, ts.v),
+        gravity_w=quat.rotate(qd, ts.gravity_w) if rotate_gravity else ts.gravity_w,
+    )
 
 
 class FusedSlam:
@@ -492,15 +526,15 @@ class FusedSlam:
 
     Runs on `device`: the CUDA card unless the caller passes another device
     (device="cpu" runs on the CPU), and a RuntimeError where there is no
-    card. The camera is moved there. A vocabulary (loop closing) raises
-    NotImplementedError; `warmup` only prepares the loop closer, so without
-    one it does nothing."""
+    card; the device is picked before anything else. The camera is moved
+    there. With a `vocabulary` (loop/vocab.py::Vocabulary) the service
+    rounds run the loop closer with `loop_cfg` (LoopConfig() by default);
+    `warmup` runs its programs once at construction so that their first
+    calls do not land at the first loop closure. Without a vocabulary,
+    `loop_cfg` and `warmup` do nothing."""
 
     def __init__(self, cam: Camera, cfg: SlamConfig, vocabulary=None, service_every: int = 8,
                  chunk: int = 1, warmup: bool = False, loop_cfg=None, device=None):
-        if vocabulary is not None or loop_cfg is not None:
-            raise NotImplementedError(
-                "orbslam3_tpu_torch: not ported yet: a vocabulary (loop closing)")
         self.device = default_device(device)
         set_full_precision()
         self.cam = cam.to(self.device)
@@ -549,6 +583,32 @@ class FusedSlam:
         self._service_round = 0
         self.host_syncs = 0  # explicit device->host reads (see _sync)
         self.timing: dict[str, list] = {}
+        # the JAX host acts on snapshots one service round old: the keyframe
+        # count (keyframes are serviced one round late), the atlas size
+        # (whether archived maps exist) and the tracker mode; these hold
+        # this round's mirrors for the next one
+        self._next_map_id = 1
+        self._nkf_inflight: int | None = None
+        self._mapid_inflight: int | None = None
+        self._multi_map = False  # sticky: archived maps exist
+        # the last service round whose mode snapshot was not OK, and the
+        # round until which loop closing runs in relocalization mode
+        self._trouble_round = 0
+        self._reloc_until = -1
+        self._n_kf_seen = 0  # keyframe rows the loop closer has serviced
+        self.loop_closer = None
+        if vocabulary is not None:
+            from orbslam3_tpu_torch.loop.closer import LoopCloser, LoopConfig
+
+            self.loop_closer = LoopCloser(vocabulary.to(self.device), loop_cfg or LoopConfig(),
+                                          sync=self._sync)
+            if warmup:
+                self.loop_closer.warmup(self.map, self.cam)
+        from orbslam3_tpu_torch.utils.logging import Throttle, get_logger
+
+        self._log = get_logger("orbslam3_tpu_torch.fused")
+        # counts service rounds (one per service_every frames)
+        self._log_throttle = Throttle(max(100 // max(service_every, 1), 1))
 
     # ------------------------------------------------------------------
     def _sync(self, flags):
@@ -577,13 +637,20 @@ class FusedSlam:
         "step" is the whole per-frame step and "step.<stage>" its parts in
         order, each counted from the end of the one before it (their totals
         add up to it; "step.bookkeeping" is the rest of the step after the
-        last named stage). The device runs ahead of the host, so device time lands in the stage that next waits for it
+        last named stage, "step.chunk_outputs" the stacking of a chunk's
+        outputs, once a chunk). The device runs ahead of the host, so device
+        time lands in the stage that next waits for it
         ("step.decide_and_flag_read" holds the per-frame flag read; "imu_init"
-        and "imu_refine" hold their own reads)."""
+        and "imu_refine" hold their own reads). With a loop closer,
+        "loop_service" / "loop_correct" are its per-keyframe services and
+        "loop.<stage>" the closer's own stages inside them."""
+        cells = dict(self.timing)
+        if self.loop_closer is not None:
+            cells.update(self.loop_closer.timing)
         return {
             k: {"total_s": round(v[0], 4), "calls": v[1],
                 "mean_ms": round(1e3 * v[0] / max(v[1], 1), 3)}
-            for k, v in sorted(self.timing.items())
+            for k, v in sorted(cells.items())
         }
 
     def _pad_imu(self, gyro, acc, dts):
@@ -597,9 +664,11 @@ class FusedSlam:
         to the system's device (`device=` as in the constructor).
 
         The host mirrors are set from the state in one read: row counts,
-        tracker mode, last frame time (the newest keyframe's), IMU phase (a
-        resumed session with an initialized IMU skips the initialization and
-        the time-phased refinements)."""
+        atlas size, tracker mode, last frame time (the newest keyframe's),
+        IMU phase (a resumed session with an initialized IMU skips the
+        initialization and the time-phased refinements). Keyframes already
+        in the map are not serviced by the loop closer; they stay candidates,
+        as place recognition matches against the map's descriptors."""
         slam = cls(cam, cfg, **kwargs)
         dev = slam.device
         slam.map, slam.ts = to_device(map_state, dev), to_device(track_state, dev)
@@ -607,10 +676,12 @@ class FusedSlam:
         K = m.kf_valid.shape[0]
         in_use = torch.arange(K, device=dev) < m.n_kf
         newest = torch.where(in_use, m.kf_time, torch.zeros_like(m.kf_time)).max()
-        n_kf, n_mp, imu_ok, mode, last_t = slam._sync(torch.stack(
-            [x.to(torch.float64) for x in (m.n_kf, m.n_mp, slam.ts.imu_ok, slam.ts.mode, newest)]))
-        slam._n_kf = slam._kf_ub = int(n_kf)
+        n_kf, n_mp, imu_ok, mode, last_t, next_map = slam._sync(torch.stack(
+            [x.to(torch.float64) for x in (m.n_kf, m.n_mp, slam.ts.imu_ok, slam.ts.mode, newest,
+                                           m.next_map_id)]))
+        slam._n_kf = slam._kf_ub = slam._n_kf_seen = int(n_kf)
         slam._mp_ub = int(n_mp)
+        slam._next_map_id = int(next_map)
         slam._mode = int(mode)
         if slam._n_kf:
             slam._last_t = float(np.float32(last_t))
@@ -646,7 +717,8 @@ class FusedSlam:
         self._frames += 1
         self._last_t = float(t)
         # host services only while something host-side remains to do
-        need_services = ((self.cfg.use_imu and not self.imu_initialized)
+        need_services = (self.loop_closer is not None
+                         or (self.cfg.use_imu and not self.imu_initialized)
                          or self._imu_refine_due() or self._compact_due())
         if need_services and self._frames % self.service_every == 0:
             if self._pending:
@@ -660,6 +732,7 @@ class FusedSlam:
         """Host mirrors of the device's counters after a step."""
         self._mode = flags.mode
         self._n_kf = flags.n_kf
+        self._next_map_id = flags.next_map_id
         # rows in use: exact for keyframes; a keyframe adds at most the
         # stereo spawn budget plus the triangulated points
         self._kf_ub = flags.n_kf
@@ -674,14 +747,33 @@ class FusedSlam:
                 or self._mp_ub + n * (self.cfg.new_mp_budget + 128)
                 >= cap.max_mp - 2 * self.cfg.new_mp_budget)
 
-    def _host_services(self):
+    def _host_services(self, final: bool = False):
         """Rare host-side work: IMU initialization until it succeeds, then
-        the time-phased refinements, and the capacity check."""
+        the time-phased refinements; the loop closer's service of every
+        keyframe up to the count of the round before (final=True, at the end
+        of the sequence: up to the present count), or on a round without a
+        new keyframe the closer's in-flight work; and the capacity check.
+
+        Like the JAX host, a round acts on the keyframe count, atlas size and
+        tracker mode of the round before; the port knows them exactly after
+        every frame and keeps the previous round's values."""
         cfg = self.cfg
         self._service_round += 1
+        snap, self._nkf_inflight = self._nkf_inflight, self._n_kf
+        snap_mm, self._mapid_inflight = self._mapid_inflight, self._next_map_id
         snap_mode, self._mode_inflight = self._mode_inflight, self._mode
         if snap_mode is not None:
             self._last_mode_snap = snap_mode
+            if snap_mode != MODE_OK:
+                # large loop seams stay plausible for ~50 rounds after trouble
+                self._trouble_round = self._service_round
+            if snap_mode == MODE_RECENTLY_LOST:
+                self._reloc_until = self._service_round + 4
+        n_kf = self._n_kf if final or snap is None else snap
+        if snap_mm is not None:
+            self._multi_map = self._multi_map or snap_mm > 1
+        if self.loop_closer is not None and self.imu_initialized:
+            self.loop_closer.gravity_w = self.ts.gravity_w
         if cfg.use_imu and not self.imu_initialized:
             if self._n_kf >= cfg.imu_init_kfs:
                 t0 = self._tic()
@@ -691,9 +783,60 @@ class FusedSlam:
             t0 = self._tic()
             self._imu_refine()
             self._toc("imu_refine", t0)
+        new_kfs = self._n_kf_seen < n_kf
+        while self._n_kf_seen < n_kf:
+            k = self._n_kf_seen
+            if self.loop_closer is not None:
+                # keyframe k's pose before the service: a correction moves
+                # every keyframe, so its delta at row k retargets the tracker
+                q_old, p_old = self.map.kf_q[k].clone(), self.map.kf_p[k].clone()
+                t0 = self._tic()
+                self.map, corrected = self.loop_closer.on_keyframe(
+                    self.map, k, self.cam, multi_map=self._multi_map,
+                    round_id=self._service_round,
+                    reloc=self._service_round < self._reloc_until,
+                    # steady: no tracking trouble for 50 rounds arms the
+                    # closer's implied-seam veto (session start counts as trouble)
+                    steady=(self._last_mode_snap == MODE_OK
+                            and self._service_round - self._trouble_round > 50))
+                self._toc("loop_correct" if corrected else "loop_service", t0)
+                if corrected:
+                    self._after_correction(q_old, p_old, k)
+            self._n_kf_seen += 1
+        if not new_kfs:
+            # idle round: act on the in-flight packet, leave a verification
+            # it dispatches for the next round
+            self._drain_loop_closer(sync=False)
         t0 = self._tic()
         self._maybe_compact()
         self._toc("compaction", t0)
+        # throttled run log: host-side counters only, no device read
+        if self._log_throttle.ready():
+            self._log.info(
+                "frame=%d t=%.2fs kfs_seen=%d imu=%s compactions=%d loops=%s",
+                self._frames, self._last_t, self._n_kf_seen, self.imu_initialized,
+                self.compactions,
+                self.loop_closer.stats.corrected if self.loop_closer else "-")
+
+    def _after_correction(self, q_old, p_old, k: int):
+        """The tracker follows a correction that moved keyframe k from
+        (q_old, p_old), and a gravity / bias refinement is requested against
+        the corrected poses."""
+        self.ts = _retarget_tracker(self.ts, q_old, p_old, self.map.kf_q[k], self.map.kf_p[k],
+                                    rotate_gravity=self.loop_closer.last_was_merge)
+        self._refine_request = True
+
+    def _drain_loop_closer(self, sync: bool = True):
+        """Act on the loop closer's in-flight detection packet and
+        verification. sync=False (idle rounds) leaves a verification the
+        packet dispatches for the next round."""
+        if self.loop_closer is None or self.loop_closer.pending_kf is None:
+            return
+        pk = self.loop_closer.pending_kf
+        q_old, p_old = self.map.kf_q[pk].clone(), self.map.kf_p[pk].clone()
+        self.map, corrected = self.loop_closer.drain(self.map, self.cam, sync=sync)
+        if corrected:
+            self._after_correction(q_old, p_old, pk)
 
     def _compact_once(self):
         """One compaction pass and the host's remap bookkeeping, with one
@@ -719,8 +862,12 @@ class FusedSlam:
             lk = prev_chain[lk]
         self.ts = self.ts._replace(
             last_kf=torch.tensor(max(new_lk, 0), dtype=I32, device=self.device))
-        # (a loop closer keeps keyframe rows of its own, its bag-of-words
-        # database and pending detections: it remaps them with `km` here)
+        if self.loop_closer is not None:
+            self.loop_closer.remap_rows(km)
+        # only rows already serviced count as seen: the keyframes newer than
+        # the last round's count still get their service next round
+        self._n_kf_seen = int((km[:self._n_kf_seen] >= 0).sum())
+        self._nkf_inflight = None  # it counted pre-compaction rows
         self._kf_remaps.append(km)
         self.compactions += 1
         self._n_kf = self._kf_ub = n_kf
@@ -983,11 +1130,13 @@ class FusedSlam:
 
     def finalize(self):
         """End of sequence: dispatch the buffered frames, a last service
-        round if the IMU is still to be initialized, then wait for the
-        device."""
+        round (with a loop closer, or if the IMU is still to be
+        initialized) over every keyframe, act on the loop closer's in-flight
+        work, then wait for the device."""
         self.flush()
-        if self.cfg.use_imu and not self.imu_initialized:
-            self._host_services()
+        if self.loop_closer is not None or (self.cfg.use_imu and not self.imu_initialized):
+            self._host_services(final=True)
+        self._drain_loop_closer()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

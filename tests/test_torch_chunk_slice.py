@@ -160,13 +160,15 @@ def test_host_reads_stay_one_a_frame(runs):
     for name in ("torch1", "torch4", "torch3"):
         slam = runs[name]["slam"]
         rep = slam.timing_report()
-        assert rep["step.decide_and_flag_read"]["calls"] == rep["step"]["calls"] == n
+        assert rep["step.decide_and_flag_read"]["calls"] == rep["step"]["calls"] == n, name
         attempts = sum(slam.timing.get(k, [0, 0])[1] for k in ("imu_init", "imu_refine"))
         rounds = slam.timing["compaction"][1]
         extra = slam.host_syncs - n
         assert 0 < extra <= 2 * attempts + rounds + 3 * slam.compactions, (name, extra)
         parts = sum(v[0] for k, v in slam.timing.items() if k.startswith("step."))
-        assert abs(parts - slam.timing["step"][0]) < 1e-3 * n
+        assert abs(parts - slam.timing["step"][0]) < 1e-3 * n, (name, parts,
+                                                               slam.timing["step"][0])
     chunked = runs["torch4"]["slam"].timing_report()
+    assert chunked["step.chunk_outputs"]["calls"] == n // 4
     assert chunked["step.frontend"]["calls"] == chunked["dispatch_chunk"]["calls"] == n // 4
     assert runs["torch4"]["slam"].host_syncs == runs["torch1"]["slam"].host_syncs

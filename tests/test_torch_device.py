@@ -1,11 +1,13 @@
 """Which device the port's entry point picks: FusedSlam runs on the CUDA
 card unless the caller asks for another device. Where no card is available
 it raises and names the device it wanted; device="cpu" runs on the CPU."""
+import numpy as np
 import pytest
 import torch
 
 from orbslam3_tpu_torch.frontend.orb import OrbConfig
 from orbslam3_tpu_torch.io.synthetic import SyntheticConfig, SyntheticWorld
+from orbslam3_tpu_torch.loop import vocab as vb
 from orbslam3_tpu_torch.map.slam_map import MapCapacity
 from orbslam3_tpu_torch.models.fused import MODE_OK, SLICE_CFG, FusedSlam
 from orbslam3_tpu_torch.models.tracker import TrackConfig
@@ -41,18 +43,26 @@ def test_explicit_cpu_runs_a_frame(world, device):
 
 
 def test_unported_options_are_refused_before_the_device_is_picked(world, monkeypatch):
-    """Only loop closing is still refused: a vocabulary or a loop_cfg, with
-    or without `warmup`, which prepares nothing but the loop closer."""
+    """Nothing is refused any more: loop closing is ported. With a
+    vocabulary (with or without `warmup`, at any chunk) and no card,
+    FusedSlam raises for the device it wanted before it builds anything; on
+    device="cpu" it builds the loop closer, with LoopConfig()'s defaults or
+    the given loop_cfg."""
+    from orbslam3_tpu_torch.loop.closer import LoopConfig
+
+    voc = vb.train_vocabulary(np.random.default_rng(0).integers(0, 256, (300, 32))
+                              .astype(np.uint8), k=4, levels=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(NotImplementedError, match="vocabulary"):
-        FusedSlam(world.cam, SLICE_CFG._replace(use_imu=True), vocabulary=object())
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        FusedSlam(world.cam, SLICE_CFG, loop_cfg=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="vocabulary"):
-        FusedSlam(world.cam, SLICE_CFG, vocabulary=object(), warmup=True, chunk=8)
-    # chunked dispatch is not refused any more: it picks its device like any other
+    with pytest.raises(RuntimeError, match="cuda"):
+        FusedSlam(world.cam, SLICE_CFG._replace(use_imu=True), vocabulary=voc)
+    with pytest.raises(RuntimeError, match="cuda"):
+        FusedSlam(world.cam, SLICE_CFG, vocabulary=voc, warmup=True, chunk=8)
     with pytest.raises(RuntimeError, match="cuda"):
         FusedSlam(world.cam, SLICE_CFG, chunk=4)
+    cfg = LoopConfig(recent_gap=7)
+    slam = FusedSlam(world.cam, TINY_CFG, vocabulary=voc, loop_cfg=cfg, device="cpu")
+    assert slam.loop_closer.cfg == cfg and slam.loop_closer.vocab.idf.device.type == "cpu"
+    assert FusedSlam(world.cam, TINY_CFG, loop_cfg=cfg, device="cpu").loop_closer is None
 
 
 def test_bench_signature_constructs(world):

@@ -3,7 +3,9 @@ every module of orbslam3_tpu_torch imports (the visual-inertial ones
 among them) and one small frame runs through FusedSlam on the CPU under the
 stereo configuration and under the stereo-inertial one, then one chunk of
 two frames, one compaction pass and one checkpoint round trip (the machine
-with the card has no JAX)."""
+with the card has no JAX); a loop closer built from a vocabulary services
+one keyframe and drains, global BA takes a step, and FusedSlam builds and
+warms up its loop closer."""
 import re
 import subprocess
 import sys
@@ -52,8 +54,26 @@ again = FusedSlam.from_state(world.cam, cfg, m2, ts2, chunk=2, device="cpu")
 assert again._n_kf == int(slam.map.n_kf)
 for name in ("optim.vi_ba", "optim.imu_init", "optim.robust_pose", "map.triangulation",
              "map.mapping_ops", "map.compaction", "map.checkpoint", "viz.export",
-             "geometry.se3", "geometry.sim3", "loop.sim3", "loop.vocab", "optim.pose_graph"):
+             "geometry.se3", "geometry.sim3", "loop.sim3", "loop.vocab", "optim.pose_graph",
+             "loop.closer", "parallel.distributed_ba", "utils.logging"):
     assert "orbslam3_tpu_torch." + name in names, name
+import numpy as np
+from orbslam3_tpu_torch.loop import vocab as vb
+from orbslam3_tpu_torch.loop.closer import LoopCloser, LoopConfig
+from orbslam3_tpu_torch.parallel.distributed_ba import global_ba, make_point_table
+voc = vb.train_vocabulary(np.random.default_rng(0).integers(0, 256, (300, 32)).astype(np.uint8),
+                          k=4, levels=2)
+closer = LoopCloser(voc, LoopConfig(recent_gap=1))
+st, c = closer.on_keyframe(slam.map, 0, slam.cam, multi_map=True)
+assert closer.pending_kf == 0 and not c
+st, c = closer.drain(st, slam.cam)
+assert closer.pending_kf is None and closer.host_syncs == 1 and not c
+pts, ids = make_point_table(st, 256, 4)
+q, p, X = global_ba(pts, st.kf_q, st.kf_p, st.kf_valid, slam.cam, iters=1)
+assert q.shape == st.kf_q.shape
+with_loop = FusedSlam(world.cam, cfg, vocabulary=voc, chunk=2, device="cpu", warmup=True,
+                      loop_cfg=LoopConfig(vi_refine_points=512))
+assert with_loop.loop_closer is not None
 assert not any(k == "jax" or k.startswith(("jax.", "orbslam3_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("modules", len(names))

@@ -80,15 +80,25 @@ def test_slice_trajectory(runs):
     assert ate < 0.05 and ok_frac > 0.9, (ate, ok_frac)
 
 
-@pytest.mark.parametrize("kwargs", [dict(vocabulary=object()), dict(chunk=4, loop_cfg=object())],
+@pytest.mark.parametrize("kwargs", [dict(), dict(chunk=4, loop_cfg="given")],
                          ids=["vocabulary", "chunk"])
 def test_slice_refuses_unported_wrapper_options(kwargs):
-    """Loop closing is what is still refused, at any chunk size; chunked
-    dispatch alone is not."""
+    """Nothing is refused any more: with a vocabulary, at chunk 1 and at
+    chunk 4, FusedSlam builds a loop closer with LoopConfig()'s defaults or
+    the given loop_cfg; chunked dispatch alone has none."""
+    from orbslam3_tpu_torch.loop import vocab as tvb
+    from orbslam3_tpu_torch.loop.closer import LoopConfig
+
     cam = port_camera(SyntheticWorld(SyntheticConfig(**SMALL_WORLD)).cam)
-    with pytest.raises(NotImplementedError):
-        tfused.FusedSlam(cam, tfused.SLICE_CFG, device="cpu", **kwargs)
-    assert tfused.FusedSlam(cam, tfused.SLICE_CFG, device="cpu", chunk=4).chunk == 4
+    voc = tvb.train_vocabulary(np.random.default_rng(0).integers(0, 256, (300, 32))
+                               .astype(np.uint8), k=4, levels=2)
+    given = LoopConfig(consistency_needed=2, run_global_ba=False)
+    if kwargs.get("loop_cfg"):
+        kwargs = dict(kwargs, loop_cfg=given)
+    slam = tfused.FusedSlam(cam, tfused.SLICE_CFG, device="cpu", vocabulary=voc, **kwargs)
+    assert slam.loop_closer.cfg == (given if "loop_cfg" in kwargs else LoopConfig())
+    assert slam.chunk == kwargs.get("chunk", 1) and slam.loop_closer.stats.corrected == 0
+    assert tfused.FusedSlam(cam, tfused.SLICE_CFG, device="cpu", chunk=4).loop_closer is None
 
 
 def test_slice_refuses_compaction():

@@ -88,3 +88,39 @@ def grow_jax_map(n_kf, cap, cfg, p_local=1024, seed=0):
                                     featL.valid, matched, preint, jnp.int32(i - 1),
                                     new_mp_budget=cfg.new_mp_budget)
     return world, jax.tree.map(np.asarray, st)
+
+
+def record_loop_services(slam, log: list):
+    """Record the loop closer's service sequence of a FusedSlam of either
+    package into `log`, by wrapping the closer's methods on the instance:
+    ("kf", service round, keyframe, multi_map, reloc, steady) for each
+    keyframe serviced, ("packet", keyframe) for each detection packet acted
+    on, ("verify", keyframe, corrected) for each verification consumed, and
+    ("correct", keyframe, candidate, merge) for each correction."""
+    cl = slam.loop_closer
+    on_kf, proc = cl.on_keyframe, cl._process_packet
+    apply_v, correct = cl._apply_verify, cl._correct
+
+    def on_keyframe(st, kf_id, cam, multi_map=True, round_id=-1, reloc=False, steady=False):
+        log.append(("kf", int(round_id), int(kf_id), bool(multi_map), bool(reloc), bool(steady)))
+        return on_kf(st, kf_id, cam, multi_map=multi_map, round_id=round_id, reloc=reloc,
+                     steady=steady)
+
+    def process_packet(st, kf_id, *a, **k):
+        log.append(("packet", int(kf_id)))
+        return proc(st, kf_id, *a, **k)
+
+    def apply_verify(st, cam, *a, **k):
+        pending = cl._verify_pending
+        st, corrected = apply_v(st, cam, *a, **k)
+        if pending is not None and cl._verify_pending is None:
+            log.append(("verify", int(pending[1]), bool(corrected)))
+        return st, corrected
+
+    def correct_(st, kf_id, cand, *a, **k):
+        log.append(("correct", int(kf_id), int(cand), bool(cl.last_was_merge)))
+        return correct(st, kf_id, cand, *a, **k)
+
+    cl.on_keyframe, cl._process_packet = on_keyframe, process_packet
+    cl._apply_verify, cl._correct = apply_verify, correct_
+    return log

@@ -39,18 +39,21 @@ Phases (each raises on failure; nothing is caught):
    seed, visual and visual-inertial pose solve, flag read, keyframe insert,
    BA and VI-BA, triangulation, fusion, point statistics, culling), host
    syncs per frame, peak device memory, the frame at which the IMU
-   initialized, gravity and biases, map sizes and keyframes culled. Then
+   initialized, gravity and biases, map sizes and keyframes culled. The run
+   is saved (save_map) before frame SAVE_AT, off its clock. Then
    (a) the same frames with the loop closer as bench.py's
    fps_with_loop_closing runs it: chunk=8, service_every=8, warmup=True and
    the world's vocabulary (data/vocab_bench.npz, k=10, 4 levels): one
-   FAST/NMS launch a chunk (13 over 104 frames), no correction and the IMU
+   FAST/NMS launch a chunk (11 over 88 frames), no correction and the IMU
    initialized after frame 63 as in the JAX reference
    (data/loop_reference.json), raw poses held to the chunk=1 run's (1 mm;
    whether they are equal bit for bit is printed), frames/s and the stage
-   table beside chunk=1's, the loop service per keyframe by stage and the
-   warmup's wall time. Then compact_map on the run's final map at the full
-   capacity shapes, on the card against the CPU (exact) with its
-   invariants and its time;
+   table beside chunk=1's, the loop service per keyframe by stage (host
+   wall) and the warmup's wall time. Then compact_map on the run's final
+   map at the full capacity shapes, on the card against the CPU (exact)
+   with its invariants and its time. From here on the revisit world of 6
+   renders in worker processes in the background, so the times of 5b and
+   5c are taken under that load;
 5. a long session on sensor-noise draw 1 of the stereo-inertial path:
    104 frames with a map of 16 keyframe rows, so that compaction and the
    keyframe pressure evictions fire by themselves, held to the JAX
@@ -60,45 +63,49 @@ Phases (each raises on failure; nothing is caught):
    closing on the card against the CPU at real sizes (a k=10, 4-level
    vocabulary trained from the run's keyframe descriptors, sparse BoW
    vectors and scores, Sim3 RANSAC by reprojection at 256 hypotheses, the
-   pose graph at K=256); then a second run on the noise-free frames,
-   alone on the card, stopped after frame SAVE_AT - 1, saved (save_map), loaded on
-   the card (load_map) and resumed in a new system (FusedSlam.from_state)
-   for the frames up to SECOND_STOP. Its raw poses must equal the first
-   run's bit for bit up to the checkpoint and stay within 1 mm of it after
-   (bit-equality is printed), with no second IMU initialization; a
-   torch.profiler window over the last 16 of them (visual-inertial pose
-   solves and at least two VI-BA keyframes) gives device time by kernel,
-   the FAST/NMS kernel's own time and launches per frame, and the device's
-   busy share, of the window's wall time and of the first run's untraced
-   step. The profiled run comes last (after phase 6): once the profiler has
-   attached to the CUDA runtime every later launch of the process costs
-   more host time;
-7. accuracy of the odometry paths against their JAX references, draw by
-   draw (check_accuracy);
+   pose graph at K=256); last of all (5d, after phase 6) the main run's
+   checkpoint loaded on the card (load_map) and resumed in a new system
+   (FusedSlam.from_state) for the frames up to SECOND_STOP: raw poses within
+   1 mm of the uninterrupted run (bit-equality is printed), no second IMU
+   initialization; a torch.profiler window over the last 16 of them
+   (visual-inertial pose solves and at least two VI-BA keyframes) gives
+   device time by kernel, the FAST/NMS kernel's own time and launches per
+   frame, and the device's busy share, of the window's wall time and of the
+   main run's untraced step. The profiled run comes last: once the
+   profiler has attached to the CUDA runtime every later launch of the
+   process costs more host time;
 6. loop closing, the path this slice adds, before the profiled run: (b) the
    revisit world of bench.py::build_revisit_world (24 s, 480 frames, a
    camera blackout at 10-13 s with an IMU bias step, a second lap over the
-   first; rendered by worker processes in the background from the start)
-   under BENCH_CFG with its vocabulary (data/vocab_revisit.npz),
+   first) under BENCH_CFG with its vocabulary (data/vocab_revisit.npz),
    chunk=8, service_every=8, warmup=True, MapCapacity() (K=256, M=32768),
    held to the JAX reference of the same run (at least one correction, the
    count within 1 of the reference's, the first correction on a keyframe
    pair whose times are within 1 s of the reference's pair, as many merges,
-   a finite trajectory with one pose a frame), printing the relocalizations
-   beside the reference's (this world is chaotic after its blackout:
-   PERF.md), the service rounds in relocalization mode and the
-   verifications beside the reference's, ATE, LoopStats, the seams and per
-   correction the time of each stage, the host reads and the global BA's
-   size; (c) the
+   a finite trajectory with one pose a frame), printing ATE, LoopStats, the
+   seams and per correction the host time of each stage, the host reads and
+   the global BA's size; its relocalizations are printed beside the
+   reference's, not held: the port's relocalization-mode rounds, read from
+   its host mirrors after every round, are held to the JAX rule over its own
+   per-frame tracker modes, and the rounds that differ from the reference's
+   are printed with the port's modes at their snapshots; (c) the
    blackout-then-merge world of tests/test_fused_loop.py (384x256, 80
-   frames, visual only): a merge into
-   map 0, post-merge ATE < 0.15 m; (d) the first correction of (b) run
-   again twice on its recorded input state: poses and points equal bit for
-   bit to the run's; the verification of its query against its candidate and
-   the three keyframes before it on the card with fed samples against the
-   CPU (counts exact; the Sim3 and seam of those past the inlier gate within
-   1e-5); card times of the exhaustive detection product and of one
-   global-BA step.
+   frames, visual only): a merge into map 0, post-merge ATE < 0.15 m;
+   (e) the relocalization world of tests/test_fused_loop.py (384x256, 80
+   frames, a 2 s blackout, visual only) with its vocabulary
+   (data/vocab_reloc.npz): no new map, at least one relocalization, the
+   first on the reference's keyframe pair, OK share after the blackout
+   > 0.9, post-blackout ATE < 0.15 m, the mirrors held to the rule and the
+   rule over the reference's own modes giving the reference's rounds;
+   (d) the first correction of (b) run again twice on its recorded input
+   state: poses and points equal bit for bit to the run's, the second run
+   with the device synchronized at each stage's end for the stages' device
+   times; the verification of its query against its candidate and the three
+   keyframes before it on the card with fed samples against the CPU (counts
+   exact; the Sim3 and seam of those past the inlier gate within 1e-5); card
+   times of the exhaustive detection product and of one global-BA step;
+7. accuracy of the odometry paths against their JAX references over the
+   frames they ran (check_accuracy) and of the session (check_session).
 
 The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the kernels' JSON record comes before them.
@@ -118,10 +125,10 @@ DURATION = 8.0
 WARMUP = 8
 PROFILE_FRAMES = 16
 CHUNK = 8  # bench.py's frames per dispatch
-SAVE_AT = 64  # the second run is saved after frame 63 (the IMU initializes after 63) ...
+SAVE_AT = 64  # the main run is saved after frame 63 (the IMU initializes after 63) ...
 SECOND_STOP = 88  # ... and resumed up to frame 87, the last 16 under the profiler
-STEREO_FRAMES = 40  # the stereo path's frames (no production configuration runs it)
-MAIN_FRAMES = 104  # the stereo-inertial path's frames at chunk 1 and, with the loop closer, 8
+STEREO_FRAMES = 80  # the stereo path's frames (no production configuration runs it)
+MAIN_FRAMES = 88  # the stereo-inertial path's frames at chunk 1 and, with the loop closer, 8
 # bench.py::build_revisit_world: a full-turn pan every 16 s, 16 s-periodic
 # position (the second lap revisits the first), noisy biased IMU, a camera
 # blackout with an IMU bias step at 10 s
@@ -137,6 +144,10 @@ MERGE_WORLD = dict(width=384, height=256, fx=240.0, fy=240.0, n_landmarks=600, d
 MERGE_BLACKOUT = (2.5, 3.3)
 MERGE_LOOP = dict(recent_gap=3, consistency_needed=2, covis_edge_weight_min=10,
                   bow_min_score_gate=False)
+# tests/test_fused_loop.py::test_blackout_relocalizes_same_map
+RELOC_WORLD = dict(MERGE_WORLD, pos_freq=(0.22, 0.3, 0.35), yaw_amp=0.8, yaw_freq=0.22)
+RELOC_BLACKOUT = (2.5, 4.5)
+RELOC_LOOP = dict(recent_gap=3, covis_edge_weight_min=10, bow_min_score_gate=False)
 SESSION_FRAMES, SESSION_MAX_KF, SESSION_SEED = 104, 16, 1  # scripts/make_session_reference.py
 LAUNCHES_PER_FRAME = 1  # one fast_nms_levels launch for the whole pyramid
 KERNEL_NAME = "fast_nms_kernel"
@@ -398,8 +409,8 @@ def load_vocab(name: str):
 
 
 def loop_slam(cam, cfg, vocab, chunk=CHUNK, service_every=8, loop_cfg=None, device=None):
-    """FusedSlam with a loop closer, warmed up as bench.py builds it, its
-    stages timed with the device's work. Returns (slam, warmup seconds)."""
+    """FusedSlam with a loop closer, warmed up as bench.py builds it.
+    Returns (slam, warmup seconds)."""
     import torch
 
     from orbslam3_tpu_torch.models.fused import FusedSlam
@@ -410,30 +421,74 @@ def loop_slam(cam, cfg, vocab, chunk=CHUNK, service_every=8, loop_cfg=None, devi
                      warmup=True, loop_cfg=loop_cfg, **kw)
     if slam.device.type == "cuda":
         torch.cuda.synchronize()
-    slam.loop_closer.timed_stages = True
     return slam, time.perf_counter() - t0
 
 
+def gba_text(gba) -> str:
+    """A correction's global BA: the points it held, the table's slots,
+    tiles and iterations."""
+    if gba is None:
+        return "none"
+    return (f"{int(gba['points'])} points in a table of {gba['slots']} slots ({gba['tiles']} "
+            f"tiles), {gba['iters']} iterations")
+
+
 def loop_service_lines(path: str, slam, card: str):
-    """The loop closer's service by stage: per keyframe serviced (detection,
-    BoW-only, packet and verification reads, verification) and per
-    correction (each stage of loop_correct)."""
+    """The loop closer's service by stage, in host wall time (the device's
+    work lands in the stage that next reads): per keyframe serviced
+    (detection, BoW-only, packet and verification reads, verification) and
+    per correction (each stage of loop_correct)."""
     rep = slam.timing_report()
     n_kf = sum(rep.get(k, {"calls": 0})["calls"] for k in ("loop_service", "loop_correct"))
     parts = [f"{k} {rep[k]['mean_ms']:.2f} ms x {rep[k]['calls']}" for k in
              ("loop_service", "loop_correct", "loop.detect", "loop.bow_only", "loop.packet_read",
               "loop.verify", "loop.verify_read") if k in rep]
-    log(f"{path}: loop service over {n_kf} keyframe services (ms a call x calls): "
+    log(f"{path}: loop service over {n_kf} keyframe services (host wall, ms a call x calls): "
         + ", ".join(parts) + f"  [{card}]")
     for i, rec in enumerate(slam.loop_closer.corrections):
         stages = ", ".join(f"{k[:-3]} {v:.1f}" for k, v in rec.items() if k.endswith("_ms"))
-        gba = ("none" if rec["gba"] is None else
-               f"{rec['gba'][0]} points in {rec['gba'][1]} tiles, {rec['gba'][2]} iterations")
         vi = {None: "not run", True: "accepted", False: "rejected"}[rec["vi_refine"]]
-        log(f"{path}: correction {i + 1}: keyframe {rec['kf_id']} against {rec['cand']} "
+        log(f"{path}: correction {i + 1}: keyframe {rec['kf_id']} (t={rec['kf_time']:.2f} s) "
+            f"against {rec['cand']} (t={rec['cand_time']:.2f} s) "
             f"({'merge' if rec['merge'] else 'loop'}{', relocalization' if rec['reloc'] else ''}), "
-            f"seam {rec['seam_m']:.3f} m, {rec['host_reads']} host reads, global BA {gba}, "
-            f"vi_refine {vi}; ms: {stages}  [{card}]")
+            f"seam {rec['seam_m']:.3f} m, {rec['host_reads']} host reads, global BA "
+            f"{gba_text(rec['gba'])}, vi_refine {vi}; host wall ms: {stages}  [{card}]")
+
+
+def reloc_rounds(modes, service_every: int, n_rounds: int) -> set:
+    """The service rounds in relocalization mode that the JAX host's rule
+    (orbslam3_tpu/models/fused.py:1098-1106) gives for a run's per-frame
+    tracker modes: round r acts on the mode snapshotted at round r - 1,
+    after frame service_every * (r - 1) - 1, and a RECENTLY_LOST snapshot at
+    round s puts rounds s .. s + 3 in relocalization mode."""
+    from orbslam3_tpu_torch.models.fused import MODE_RECENTLY_LOST
+
+    out = set()
+    for s in range(2, n_rounds + 1):
+        f = service_every * (s - 1) - 1
+        if f < len(modes) and modes[f] == MODE_RECENTLY_LOST:
+            out.update(r for r in range(s, s + 4) if r <= n_rounds)
+    return out
+
+
+def mirror_recorder(rounds: dict):
+    """A run_slice hook: after every service round, whether the port's
+    host mirrors put it in relocalization mode."""
+    def record(_i, slam):
+        if slam._service_round:
+            rounds[slam._service_round] = slam._service_round < slam._reloc_until
+    return record
+
+
+def hold_mirrors(path: str, slam, rounds: dict) -> set:
+    """The port's relocalization-mode rounds, read from its mirrors, must
+    be those the JAX rule gives for its own per-frame modes."""
+    mirrored = {r for r, on in rounds.items() if on}
+    rule = reloc_rounds(slam.modes(), slam.service_every, max(rounds))
+    if mirrored != rule:
+        raise AssertionError(f"{path}: relocalization-mode rounds {sorted(mirrored)} from the "
+                             f"host mirrors, {sorted(rule)} by the JAX rule over the run's modes")
+    return mirrored
 
 
 def loop_bench_run(world, times, frames, imu, first, first_fps, card, ref):
@@ -517,8 +572,8 @@ def take_rendered(box: dict):
     if "error" in box:
         raise box["error"]
     log(f"revisit world: {len(box['times'])} frames {box['world'].cfg.width}x"
-        f"{box['world'].cfg.height} rendered in {box['seconds']:.1f} s in the background (waited "
-        f"{time.perf_counter() - t0:.1f} s for it here)")
+        f"{box['world'].cfg.height} rendered in {box['seconds']:.1f} s in the background during "
+        f"phases 5b-5c (waited {time.perf_counter() - t0:.1f} s for it here)")
     return box["world"], box["times"], box["frames"]
 
 
@@ -539,14 +594,12 @@ def revisit_run(card, ref, rendered):
     imu = [world.imu_window(times[i - 1] if i > 0 else t, t) for i, t in enumerate(times)]
     slam, warm_s = loop_slam(world.cam, BENCH_CFG, load_vocab("revisit"))
     cl = slam.loop_closer
+    # the first correction's input and output, which phase (d) runs again
     first = {}
-    pair_times = []  # keyframe times of each correction's pair (rows move in compaction)
     correct = cl._correct
 
     def recorded(st, kf_id, cand, S_rel, cam, **kw):
-        pair_times.append(st.kf_time[torch.tensor([kf_id, cand], device=st.kf_time.device)]
-                          .tolist())
-        if not first:  # the first correction's input, for phase (d)
+        if not first:
             first.update(st=to_device(st, "cpu"), kf_id=kf_id, cand=cand,
                          S=Sim3(*[a.clone() for a in S_rel]), kw=kw,
                          edges=list(cl._loop_edges),
@@ -557,26 +610,13 @@ def revisit_run(card, ref, rendered):
         return out
 
     cl._correct = recorded
-    services = []
-    on_keyframe, apply_verify = cl.on_keyframe, cl._apply_verify
-
-    def serviced(st, kf_id, cam, **kw):
-        services.append(["kf", kw["round_id"], kf_id, kw["reloc"]])
-        return on_keyframe(st, kf_id, cam, **kw)
-
-    def applied(st, cam, *a, **kw):
-        pending = cl._verify_pending
-        out = apply_verify(st, cam, *a, **kw)
-        if pending is not None and cl._verify_pending is None:
-            services.append(["verify", slam._service_round, pending[1], out[1]])
-        return out
-
-    cl.on_keyframe, cl._apply_verify = serviced, applied
+    rounds = {}
     torch.cuda.reset_peak_memory_stats()
     (_, fps, syncs, _), launches = counted_run("revisit", world, times, frames, imu, BENCH_CFG,
-                                               chunk=CHUNK, slam=slam)
+                                               chunk=CHUNK, slam=slam,
+                                               hook=mirror_recorder(rounds))
     peak = torch.cuda.max_memory_allocated()
-    cl._correct, cl.on_keyframe, cl._apply_verify = correct, on_keyframe, apply_verify
+    cl._correct = correct
     n = len(times)
     gt_p, _ = world.gt_trajectory()
     _, ps, _ = slam.trajectory_arrays()
@@ -585,8 +625,6 @@ def revisit_run(card, ref, rendered):
         raise AssertionError(f"revisit: trajectory not finite or of shape {ps.shape}")
     st = cl.stats
     corr = cl.corrections
-    for c, (t_kf, t_cand) in zip(corr, pair_times):
-        c["kf_time"], c["cand_time"] = t_kf, t_cand
     rec = dict(ate=float(ate_rmse(ps, gt_p[:n])), ate_raw=float(ate_rmse(ps_raw, gt_p[:n])),
                ok_frac=float((slam.modes() == MODE_OK).mean()), stats=st._asdict(),
                n_kf=int(slam.map.n_kf), imu_init_frame=slam.imu_init_frame, fps=fps,
@@ -608,18 +646,10 @@ def revisit_run(card, ref, rendered):
             f"(t={c['cand_time']:.2f} s), {'merge' if c['merge'] else 'loop'}"
             f"{', relocalization' if c['reloc'] else ''}, seam {c['seam_m']:.3f} m, global BA "
             f"{c['gba']}, vi_refine {c['vi_refine']}")
-    for i, c in enumerate(corr):
-        log(f"revisit, port correction {i + 1}: keyframe {c['kf_id']} (t={c['kf_time']:.2f} s) "
-            f"against {c['cand']} (t={c['cand_time']:.2f} s)")
-    reloc_rounds = sorted({e[1] for e in services if e[0] == "kf" and e[3]})
-    ref_reloc = sorted({e[1] for e in ref["services"] if e[0] == "kf" and e[4]})
-    log(f"revisit: service rounds in relocalization mode {reloc_rounds} (JAX {ref_reloc}); "
-        f"verifications (round, keyframe, corrected) "
-        f"{[tuple(e[1:]) for e in services if e[0] == 'verify']} (JAX, keyframe and corrected: "
-        f"{[tuple(e[1:]) for e in ref['services'] if e[0] == 'verify']})")
     log("revisit timing_report (host wall, ms/call): " + json.dumps(slam.timing_report()))
     stage_table("revisit", slam.timing_report(), card)
     loop_service_lines("revisit", slam, card)
+    rec["reloc_witness"] = reloc_witness("revisit", slam, rounds, ref)
     if launches != n // CHUNK:
         raise AssertionError(f"revisit: {launches} launches over {n} frames")
     ref_n = ref["stats"]["corrected"]
@@ -629,7 +659,7 @@ def revisit_run(card, ref, rendered):
     log(f"revisit: the first correction's query keyframe at t={corr[0]['kf_time']:.2f} s "
         f"({corr[0]['kf_time'] - r0['kf_time']:+.2f} s from the reference's), its candidate at "
         f"t={corr[0]['cand_time']:.2f} s ({corr[0]['cand_time'] - r0['cand_time']:+.2f} s); "
-        f"relocalizations {st.relocalized} (JAX {ref['stats']['relocalized']})")
+        f"relocalizations {st.relocalized} (JAX {ref['stats']['relocalized']}, not held: above)")
     if not (abs(corr[0]["kf_time"] - r0["kf_time"]) <= 1.0
             and abs(corr[0]["cand_time"] - r0["cand_time"]) <= 1.0):
         raise AssertionError(f"revisit: the first correction on keyframes at t="
@@ -642,9 +672,39 @@ def revisit_run(card, ref, rendered):
     return slam, rec, first, launches
 
 
-def merge_run(card):
-    """(c) The blackout-then-merge world of tests/test_fused_loop.py, at its
-    own size: a merge into map 0 and post-merge ATE < 0.15 m."""
+def reloc_witness(path: str, slam, rounds: dict, ref: dict) -> dict:
+    """Where the port's relocalization mode departs from the reference's.
+    The port's rounds in that mode, read from its host mirrors, are held to
+    the JAX rule over its own per-frame tracker modes (reloc_rounds); the
+    reference's rounds (from its service record) are printed beside them,
+    with the port's tracker mode at each snapshot that could have put a
+    round of the reference's alone in that mode. When the mirrors hold, a
+    difference in rounds is a difference in the tracker's modes."""
+    port = hold_mirrors(path, slam, rounds)
+    jax_rounds = {e[1] for e in ref["services"] if e[0] == "kf" and e[4]}
+    kf_rounds = {e[1] for e in ref["services"] if e[0] == "kf"}
+    only_jax = sorted(jax_rounds - port)
+    only_port = sorted((port & kf_rounds) - jax_rounds)
+    modes = slam.modes()
+    every = slam.service_every
+    snaps = sorted({s for r in only_jax for s in range(max(r - 3, 2), r + 1)})
+    at = {every * (s - 1) - 1: int(modes[every * (s - 1) - 1]) for s in snaps
+          if every * (s - 1) - 1 < len(modes)}
+    log(f"{path}: relocalization-mode rounds from the port's mirrors equal the JAX rule over "
+        f"its per-frame modes ({len(port)} rounds); rounds in that mode, among those that "
+        f"serviced a keyframe: only the reference's {only_jax}, only the port's {only_port}; the "
+        f"port's tracker mode (2 = recently lost) at the snapshot frames that could have put the "
+        f"reference's alone there: {at}")
+    return dict(port_rounds=sorted(port), jax_rounds=sorted(jax_rounds), only_jax=only_jax,
+                only_port=only_port, port_modes_at_snapshots=at)
+
+
+def blackout_world_run(path, world_kw, blackout, vocab, loop_over, card, **cfg_kw):
+    """A small world of tests/test_fused_loop.py (384x256, 8 s at 10 Hz,
+    visual only) with a camera blackout, under that test's configuration
+    and LoopConfig overrides, chunk 1, service_every=2. Returns (slam,
+    times, post-blackout ATE, the keyframes' maps, launches, frames/s,
+    relocalization-mode rounds from the mirrors)."""
     import numpy as np
 
     from orbslam3_tpu_torch.eval.metrics import ate_rmse
@@ -655,33 +715,95 @@ def merge_run(card):
     from orbslam3_tpu_torch.models.slam import SlamConfig
     from orbslam3_tpu_torch.models.tracker import TrackConfig
 
-    world = SyntheticWorld(SyntheticConfig(**MERGE_WORLD))
+    world = SyntheticWorld(SyntheticConfig(**world_kw))
     times = world.frame_times()
     blank = np.full((world.cfg.height, world.cfg.width), 127, np.uint8)
-    frames = [(blank, blank) if MERGE_BLACKOUT[0] <= t < MERGE_BLACKOUT[1]
+    frames = [(blank, blank) if blackout[0] <= t < blackout[1]
               else world.render_frame(t) for t in times]
     imu = [(np.zeros((0, 3)), np.zeros((0, 3)), np.zeros(0))] * len(times)
     cfg = SlamConfig(orb=OrbConfig(n_features=384, n_levels=4),
                      cap=MapCapacity(max_kf=96, n_feat=384, max_mp=8192, max_obs=8),
                      track=TrackConfig(p_local=2048), ba_points=1024, use_imu=False,
-                     kf_max_frames=2, lost_timeout=0.3, min_kfs_keep_map=5)
-    slam, warm_s = loop_slam(world.cam, cfg, load_vocab("merge"), chunk=1, service_every=2,
-                             loop_cfg=LoopConfig(**MERGE_LOOP))
-    (_, fps, _, _), launches = counted_run("merge", world, times, frames, imu, cfg, slam=slam)
+                     kf_max_frames=2, min_kfs_keep_map=5, **cfg_kw)
+    slam, _ = loop_slam(world.cam, cfg, vocab, chunk=1, service_every=2,
+                        loop_cfg=LoopConfig(**loop_over))
+    rounds = {}
+    (_, fps, _, _), launches = counted_run(path, world, times, frames, imu, cfg, slam=slam,
+                                           hook=mirror_recorder(rounds))
     _, ps, _ = slam.trajectory_arrays()
     gt_p, _ = world.gt_trajectory()
-    post = times > MERGE_BLACKOUT[1] + 2.0
+    post = times > blackout[1] + 2.0
     ate_post = float(ate_rmse(ps[post], gt_p[post]))
     kv = slam.map.kf_valid.cpu().numpy()
     maps = set(slam.map.kf_map_id.cpu().numpy()[kv].tolist())
+    log(f"{path}: {len(times)} frames, {slam.loop_closer.stats}, keyframes' maps {sorted(maps)}, "
+        f"next_map_id {int(slam.map.next_map_id)}, post-blackout ATE {ate_post:.4f} m, "
+        f"{fps:.3f} frames/s, fast_nms launches {launches}  [{card}]")
+    loop_service_lines(path, slam, card)
+    return slam, times, ate_post, maps, launches, fps, rounds
+
+
+def merge_run(card):
+    """(c) The blackout-then-merge world of tests/test_fused_loop.py, at its
+    own size: a merge into map 0 and post-merge ATE < 0.15 m."""
+    slam, _, ate_post, maps, launches, _, _ = blackout_world_run(
+        "merge world", MERGE_WORLD, MERGE_BLACKOUT, load_vocab("merge"), MERGE_LOOP, card,
+        lost_timeout=0.3)
     st = slam.loop_closer.stats
-    log(f"merge world: {len(times)} frames, {st}, keyframes' maps {sorted(maps)}, post-merge ATE "
-        f"{ate_post:.4f} m, {fps:.3f} frames/s, fast_nms launches {launches}  [{card}]")
-    loop_service_lines("merge world", slam, card)
     if st.corrected < 1 or maps != {0} or not ate_post < 0.15:
         raise AssertionError(f"merge world: corrected {st.corrected}, maps {maps}, post-merge ATE "
                              f"{ate_post:.4f} m (needs >= 1, {{0}}, < 0.15)")
     return launches, ate_post
+
+
+def reloc_run(card, ref) -> dict:
+    """(e) The relocalization world of tests/test_fused_loop.py at its own
+    size (fast motion, a 2 s blackout, lost_timeout=30 s: the atlas never
+    spawns a map, lost keyframes are inserted), held to the test's bars and
+    to the JAX run of data/loop_reference.json ("reloc"): no new map, at
+    least one relocalization, the first one on the reference's keyframe
+    pair, OK share after the blackout > 0.9, post-blackout ATE < 0.15 m;
+    the port's relocalization-mode rounds follow its modes by the JAX rule,
+    and the rule over the reference's own modes gives the reference's."""
+    import numpy as np
+
+    from orbslam3_tpu_torch.models.fused import MODE_OK
+
+    slam, times, ate_post, maps, launches, fps, rounds = blackout_world_run(
+        "relocalization world", RELOC_WORLD, RELOC_BLACKOUT, load_vocab("reloc"), RELOC_LOOP,
+        card, lost_timeout=30.0, insert_kfs_lost_visual=True)
+    st = slam.loop_closer.stats
+    post = times > RELOC_BLACKOUT[1] + 2.0
+    ok_post = float((slam.modes()[post] == MODE_OK).mean())
+    port = hold_mirrors("relocalization world", slam, rounds)
+    ref_rule = reloc_rounds(np.asarray(ref["modes"]), 2, max(e[1] for e in ref["services"]
+                                                             if e[0] == "kf"))
+    ref_on = {e[1] for e in ref["services"] if e[0] == "kf" and e[4]}
+    ref_kf = {e[1] for e in ref["services"] if e[0] == "kf"}
+    mine = [c for c in slam.loop_closer.corrections if c["reloc"]]
+    want = next(c for c in ref["corrections"] if c["reloc"])
+    log(f"relocalization world: {st} (JAX {ref['stats']}); first relocalization keyframe "
+        + (f"{mine[0]['kf_id']} against {mine[0]['cand']}, seam {mine[0]['seam_m']:.3f} m"
+           if mine else "none")
+        + f" (JAX {want['kf_id']} against {want['cand']}, seam {want['seam_m']:.3f} m); OK share "
+        f"after the blackout {ok_post:.4f}; relocalization-mode rounds {sorted(port)} (JAX "
+        f"{sorted(ref_on)}); the JAX rule over the reference's own modes gives its rounds: "
+        f"{ref_rule & ref_kf == ref_on}  [{card}]")
+    if ref_rule & ref_kf != ref_on:
+        raise AssertionError("reloc_rounds over the reference's modes does not give its rounds")
+    if int(slam.map.next_map_id) != 1 or maps != {0}:
+        raise AssertionError(f"relocalization world: next_map_id {int(slam.map.next_map_id)}, "
+                             f"maps {maps} (a new map was spawned)")
+    if st.relocalized < 1 or (mine[0]["kf_id"], mine[0]["cand"]) != (want["kf_id"], want["cand"]):
+        raise AssertionError(f"relocalization world: {st.relocalized} relocalizations, the first "
+                             f"on {[(c['kf_id'], c['cand']) for c in mine][:1]}, the reference's "
+                             f"on ({want['kf_id']}, {want['cand']})")
+    if not (ok_post > 0.9 and ate_post < 0.15):
+        raise AssertionError(f"relocalization world: OK share {ok_post:.4f} (> 0.9), ATE "
+                             f"{ate_post:.4f} m (< 0.15)")
+    return dict(stats=st._asdict(), launches=launches, fps=fps, ate_post_m=ate_post,
+                ok_post=ok_post, first_reloc=[mine[0]["kf_id"], mine[0]["cand"]],
+                seam_m=mine[0]["seam_m"])
 
 
 def loop_reproducibility(first, vocab, cfg, cam, card) -> dict:
@@ -698,15 +820,24 @@ def loop_reproducibility(first, vocab, cfg, cam, card) -> dict:
     from orbslam3_tpu_torch.loop.sim3 import draw_samples
     from orbslam3_tpu_torch.parallel.distributed_ba import global_ba, make_point_table
 
+    class SyncedCloser(lc.LoopCloser):
+        """The closer with the device synchronized at the end of each stage,
+        so that a stage's time holds its device work (a measurement only)."""
+
+        def _clock(self, name=None, t0=0.0):
+            torch.cuda.synchronize()
+            return super()._clock(name, t0)
+
     dev = torch.device("cuda")
     st = to_device(first["st"], dev)
-    outs = []
-    for _ in range(2):
-        closer = lc.LoopCloser(vocab.to(dev), cfg)
+    outs, recs = [], []
+    for kind in (lc.LoopCloser, SyncedCloser):
+        closer = kind(vocab.to(dev), cfg)
         closer._loop_edges = list(first["edges"])
         closer.gravity_w = first["gravity"]
         outs.append(to_device(closer._correct(st, first["kf_id"], first["cand"], first["S"], cam,
                                               **first["kw"]), "cpu"))
+        recs.append(closer.corrections[-1])
     names = ("kf_q", "kf_p", "kf_v", "mp_pos")
     same = [all(torch.equal(getattr(o, k), getattr(first["out"], k)) for k in names) for o in outs]
     log(f"reproducible: the revisit run's first correction (keyframe {first['kf_id']} against "
@@ -714,6 +845,10 @@ def loop_reproducibility(first, vocab, cfg, cam, card) -> dict:
         f"recorded input: poses and points equal to the run's bit for bit: {same}  [{card}]")
     if not all(same):
         raise AssertionError("two runs of _correct on one state gave other poses than the run's")
+    stage_ms = {k[:-3]: v for k, v in recs[1].items() if k.endswith("_ms")}
+    log(f"the same correction by stage, the device synchronized at each stage's end (ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+        + f"; global BA {gba_text(recs[1]['gba'])}; {recs[1]['host_reads']} host reads  [{card}]")
 
     # the correction's candidate and three keyframes just before the query
     # (they share its points: well-conditioned Sim3s)
@@ -765,7 +900,7 @@ def loop_reproducibility(first, vocab, cfg, cam, card) -> dict:
     log(f"hot operations on the card (CUDA events): exhaustive match counts of one keyframe "
         f"against {K} rows {det_ms:.2f} ms; one global-BA step over {n_pts} points in "
         f"{P // cfg.gba_tile} tiles of {cfg.gba_tile}, {K} keyframes {gba_ms:.1f} ms  [{card}]")
-    return dict(detect_ms=det_ms, gba_step_ms=gba_ms, gba_points=n_pts)
+    return dict(detect_ms=det_ms, gba_step_ms=gba_ms, gba_points=n_pts, correct_stage_ms=stage_ms)
 
 
 def compaction_check(slam, card):
@@ -1026,11 +1161,13 @@ def leaves_phase(slam, cam, card):
 
 
 def run_slice(world, times, frames, imu, cfg, device=None, profile_at=None, chunk=1,
-              slam=None, start=0, stop=None, finalize=True):
+              slam=None, start=0, stop=None, finalize=True, hook=None):
     """FusedSlam.process_frame over frames [start, stop), on the device
     FusedSlam picks itself (the card) unless `device` names one, in a new
     system unless `slam` is given. With `profile_at`, frames [profile_at,
-    profile_at + PROFILE_FRAMES) run under torch.profiler.
+    profile_at + PROFILE_FRAMES) run under torch.profiler. `hook(i, slam)`
+    runs before frame i, after the last frame and after finalize, off the
+    clock.
     Returns (slam, frames/s after WARMUP frames, host syncs per frame,
     (profiler, wall seconds of its window) or None)."""
     import torch
@@ -1052,6 +1189,7 @@ def run_slice(world, times, frames, imu, cfg, device=None, profile_at=None, chun
 
     n = len(times) if stop is None else stop
     prof = None
+    paused = 0.0
     i = start
     while i < n:
         if i == start + WARMUP:
@@ -1062,7 +1200,12 @@ def run_slice(world, times, frames, imu, cfg, device=None, profile_at=None, chun
             syncs0 = slam.host_syncs
             if on_card:
                 torch.cuda.reset_peak_memory_stats()
+            paused = 0.0
             t_start = time.perf_counter()
+        if hook is not None:
+            t0 = time.perf_counter()
+            hook(i, slam)
+            paused += time.perf_counter() - t0
         if i == profile_at:
             from torch.profiler import ProfilerActivity, profile
 
@@ -1080,10 +1223,16 @@ def run_slice(world, times, frames, imu, cfg, device=None, profile_at=None, chun
             continue
         step(i)
         i += 1
+    if hook is not None:
+        t0 = time.perf_counter()
+        hook(n, slam)
+        paused += time.perf_counter() - t0
     if finalize:
         slam.finalize()
     sync()
-    elapsed = time.perf_counter() - t_start
+    elapsed = time.perf_counter() - t_start - paused
+    if hook is not None and finalize:
+        hook(n, slam)
     timed = n - start - WARMUP
     return slam, timed / elapsed, (slam.host_syncs - syncs0) / timed, prof
 
@@ -1160,61 +1309,63 @@ def check_accuracy(path: str, draws):
                                  f"JAX reference {d['jax']['ok_frac']:.4f} - 0.05")
 
 
-def second_run_and_profile(world, times, frames, imu, first, card) -> float:
-    """A second stereo-inertial run through a checkpoint: frames [0,
-    SAVE_AT) in one system, save_map, load_map on the card,
-    FusedSlam.from_state, frames [SAVE_AT, SECOND_STOP) in the resumed
-    system. Its raw poses must equal `first`'s bit for bit before the
-    checkpoint and stay within 1 mm of it after; the IMU state is carried
-    (no second initialization). A torch.profiler window closes the resumed
-    part.
+def checkpoint_saver(path: str, box: dict):
+    """A run_slice hook that saves the run (save_map) before frame SAVE_AT."""
+    from orbslam3_tpu_torch.map.checkpoint import save_map
+
+    def save(i, slam):
+        if i == SAVE_AT:
+            t0 = time.perf_counter()
+            save_map(path, slam.map, slam.ts)
+            box.update(save_ms=(time.perf_counter() - t0) * 1e3, bytes=os.path.getsize(path),
+                       imu_initialized=slam.imu_initialized)
+    return save
+
+
+def resume_and_profile(world, times, frames, imu, first, path, saved, card) -> float:
+    """The main run resumed from its checkpoint after frame SAVE_AT - 1:
+    load_map on the card, FusedSlam.from_state, frames [SAVE_AT,
+    SECOND_STOP) in the resumed system. Its raw poses must stay within 1 mm
+    of the uninterrupted run's (bit-equality is printed); the IMU state is
+    carried (no second initialization). A torch.profiler window closes the
+    resumed part.
     Prints device time by kernel; returns the FAST/NMS kernel's device
     milliseconds per frame."""
-    import tempfile
-
     import numpy as np
 
-    from orbslam3_tpu_torch.map.checkpoint import load_map, save_map
+    from orbslam3_tpu_torch.map.checkpoint import load_map
     from orbslam3_tpu_torch.models.fused import BENCH_CFG, FusedSlam
 
     n = SECOND_STOP
-    if not first.imu_init_frame < SAVE_AT:
+    if not (first.imu_init_frame < SAVE_AT and saved.get("imu_initialized")):
         raise AssertionError(f"the checkpoint at frame {SAVE_AT} comes before the IMU "
                              f"initialized (frame {first.imu_init_frame})")
     # the window closes the run: every launch after the profiler attached costs more host time
     p0 = n - PROFILE_FRAMES
     step_ms = first.timing_report()["step"]["mean_ms"]
-    head, _, _, _ = run_slice(world, times, frames, imu, BENCH_CFG, stop=SAVE_AT, finalize=False)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "checkpoint.npz")
-        t0 = time.perf_counter()
-        save_map(path, head.map, head.ts)
-        t1 = time.perf_counter()
-        st, ts = load_map(path, with_track_state=True)
-        t2 = time.perf_counter()
-        size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    st, ts = load_map(path, with_track_state=True)
+    load_ms = (time.perf_counter() - t0) * 1e3
     if st.kf_q.device.type != "cuda":
         raise AssertionError(f"load_map without a device argument loaded onto {st.kf_q.device}")
     resumed = FusedSlam.from_state(world.cam, BENCH_CFG, st, ts)
-    log(f"checkpoint after frame {SAVE_AT - 1}: {size / 2**20:.2f} MiB, save_map "
-        f"{(t1 - t0) * 1e3:.0f} ms, load_map onto the card {(t2 - t1) * 1e3:.0f} ms; resumed with "
-        f"n_kf {resumed._n_kf}, IMU initialized {resumed.imu_initialized}  [{card}]")
+    log(f"checkpoint of the main run after frame {SAVE_AT - 1}: {saved['bytes'] / 2**20:.2f} MiB, "
+        f"save_map {saved['save_ms']:.0f} ms (off the run's clock), load_map onto the card "
+        f"{load_ms:.0f} ms; resumed with n_kf {resumed._n_kf}, IMU initialized "
+        f"{resumed.imu_initialized}  [{card}]")
     if not resumed.imu_initialized or resumed.device.type != "cuda":
         raise AssertionError("the resumed system lost the IMU state or left the card")
     _, _, _, (prof, wall) = run_slice(world, times, frames, imu, BENCH_CFG, slam=resumed,
                                       start=SAVE_AT, stop=n, profile_at=p0)
     if resumed.imu_init_frame is not None or "imu_init" in resumed.timing:
         raise AssertionError("the resumed system initialized the IMU a second time")
-    a, b, c = head.frame_outputs(), resumed.frame_outputs(), first.frame_outputs()
-    same_head = bool(np.array_equal(a.p, c.p[:SAVE_AT]) and np.array_equal(a.q, c.q[:SAVE_AT]))
+    b, c = resumed.frame_outputs(), first.frame_outputs()
     same_tail = bool(np.array_equal(b.p, c.p[SAVE_AT:n]) and np.array_equal(b.q, c.q[SAVE_AT:n]))
     far = float(np.linalg.norm(b.p - c.p[SAVE_AT:n], axis=1).max())
-    log(f"reproducible: a second stereo-inertial run's raw poses equal the first run's bit for "
-        f"bit over frames 0..{SAVE_AT - 1}: {same_head}; resumed from the checkpoint over frames "
-        f"{SAVE_AT}..{n - 1}: bit for bit {same_tail}, largest position difference {far:.3e} m, "
-        f"n_kf {int(resumed.map.n_kf)} (uninterrupted {int(first.map.n_kf)})")
-    if not same_head:
-        raise AssertionError("two stereo-inertial runs on the same frames gave different poses")
+    log(f"reproducible: the main run resumed from its checkpoint over frames {SAVE_AT}..{n - 1}: "
+        f"raw poses equal the uninterrupted run's bit for bit {same_tail}, largest position "
+        f"difference {far:.3e} m, n_kf {int(resumed.map.n_kf)} (uninterrupted, at frame "
+        f"{len(times) - 1}: {int(first.map.n_kf)})")
     if not far <= 1e-3 or b.p.shape != (n - SAVE_AT, 3):
         raise AssertionError(f"the resumed run leaves the uninterrupted one by {far} m (> 1 mm)")
     n_kfs = int(b.is_kf[p0 - SAVE_AT:p0 - SAVE_AT + PROFILE_FRAMES].sum())
@@ -1326,7 +1477,6 @@ def main() -> int:
     world, times, frames, imu = build_world()
     log(f"world: {len(times)} frames {world.cfg.width}x{world.cfg.height} rendered in "
         f"{time.perf_counter() - t0:.1f} s")
-    revisit_frames = render_revisit_world()
 
     # ---- 0. the card
     phase("0 the card, 1 build, 2 kernel")
@@ -1381,10 +1531,14 @@ def main() -> int:
 
     # ---- 4. the stereo-inertial path (BENCH_CFG): the main path
     phase("4 stereo-inertial path")
+    import tempfile
+
     n = MAIN_FRAMES
-    times, frames, imu = times[:n], frames[:n], imu[:n]
+    main_frames = times[:n], frames[:n], imu[:n]
+    ckpt_dir = tempfile.TemporaryDirectory()
+    ckpt, saved = os.path.join(ckpt_dir.name, "checkpoint.npz"), {}
     (vi, fps, syncs_per_frame, _), launches = counted_run(
-        "stereo-inertial", world, times, frames, imu, BENCH_CFG)
+        "stereo-inertial", world, *main_frames, BENCH_CFG, hook=checkpoint_saver(ckpt, saved))
     peak = torch.cuda.max_memory_allocated()
     if not vi.imu_initialized or not bool(vi.ts.imu_ok):
         raise AssertionError("stereo-inertial: the IMU was not initialized by the end of the run")
@@ -1407,20 +1561,24 @@ def main() -> int:
     log("stereo-inertial, noise-free against the reference: " + first_divergence(vi, ref_vi))
 
     phase("4b (a) the same frames with the loop closer at chunk=8; compact_map at full capacity")
-    launches_chunk, fps_chunk, warm_a = loop_bench_run(world, times, frames, imu, vi, fps, card,
+    launches_chunk, fps_chunk, warm_a = loop_bench_run(world, *main_frames, vi, fps, card,
                                                        ref_loop["bench"])
     compaction_check(vi, card)
+    # the revisit world renders in the background from here on: the times of
+    # phases 5b and 5c are taken under that load, those before it are not
+    revisit_frames = render_revisit_world()
 
-    # ---- 5. the path's noise draws, the long session, the leaves of loop
-    # closing; then a second full run through a checkpoint: equal poses, and a
-    # profiler window after the IMU initialized (device time by kernel)
+    # ---- 5. the long session and the leaves of loop closing; the main run
+    # resumed from its checkpoint comes last (a profiler window after the IMU
+    # initialized: device time by kernel)
     phase("5b the long session: 16 keyframe rows, compaction by itself")
-    session = session_run(world, times, frames, imu, gt_p, card)
+    m = SESSION_FRAMES
+    session = session_run(world, times[:m], frames[:m], imu[:m], gt_p, card)
     phase("5c the leaves of loop closing on the card")
     leaves_phase(vi, vi.cam, card)
 
-    # ---- 6. loop closing: the revisit world, the merge world, the first
-    # correction again on its recorded state
+    # ---- 6. loop closing: the revisit world, the merge world, the
+    # relocalization world, the first correction again on its recorded state
     phase("6b loop closing: the revisit world (480 frames)")
     rv, rv_rec, rv_first, launches_revisit = revisit_run(card, ref_loop["revisit"],
                                                          revisit_frames)
@@ -1428,12 +1586,15 @@ def main() -> int:
     del rv
     phase("6c loop closing: the merge world")
     launches_merge, ate_merge = merge_run(card)
+    phase("6e loop closing: the relocalization world")
+    reloc = reloc_run(card, ref_loop["reloc"])
     phase("6d loop closing: the first correction again, its verification against the CPU")
     hot = loop_reproducibility(rv_first, load_vocab("revisit"), rv_cfg, rv_cam, card)
     del rv_first
 
-    phase("5d the second run, through a checkpoint, with the profiler window (last)")
-    us_frame = second_run_and_profile(world, times, frames, imu, vi, card)
+    phase("5d the main run resumed from its checkpoint, with the profiler window (last)")
+    us_frame = resume_and_profile(world, *main_frames, vi, ckpt, saved, card)
+    ckpt_dir.cleanup()
     del vi
 
     # ---- 7. the odometry paths against their JAX references (last, so a
@@ -1455,11 +1616,11 @@ def main() -> int:
         "launches_by_path": {"stereo": launches_stereo, "stereo_inertial": launches,
                              "loop_bench_chunk8": launches_chunk,
                              "loop_revisit_chunk8": launches_revisit,
-                             "loop_merge": launches_merge},
+                             "loop_merge": launches_merge, "loop_reloc": reloc["launches"]},
         "chunk8": {**kern16, "frames_per_s": fps_chunk, "chunk1_frames_per_s": fps},
         "loop": {"bench_warmup_s": warm_a, "revisit": {k: v for k, v in rv_rec.items()
                                                         if k != "corrections"},
-                 "merge_post_ate_m": ate_merge, **hot},
+                 "merge_post_ate_m": ate_merge, "reloc": reloc, **hot},
         "library_ms": None, "profile_ms": us_frame / 1e3,
         "earlier_ms_is": "8 one-level launches of this kernel, the call pattern before the "
                          "levels were fused, timed in this run",

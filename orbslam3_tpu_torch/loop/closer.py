@@ -315,11 +315,9 @@ class LoopCloser:
         # one-deep verification pipeline, read at the next loop service:
         # (round_id, kf_id, cands, reloc, steady, nm, ninl, nrp, disp, S)
         self._verify_pending: Optional[tuple] = None
-        # host wall time per stage ("loop.<stage>": [total_s, calls])
+        # host wall time per stage ("loop.<stage>": [total_s, calls]); the
+        # device runs ahead, so its work lands in the stage that next reads
         self.timing: dict = {}
-        # with timed_stages the device is synchronized at each stage's end, so
-        # the stage times hold the device's work (measurement only)
-        self.timed_stages = False
         # one record per correction: rows, kind, seam, stage times
         self.corrections: list = []
         # accumulated loop edges (i=cand, j=cur, q(4), t(3), s), host-side,
@@ -341,10 +339,8 @@ class LoopCloser:
         self.host_syncs += 1
         return x.tolist()
 
-    def _clock(self, name: Optional[str] = None, t0: float = 0.0, dev=None) -> float:
+    def _clock(self, name: Optional[str] = None, t0: float = 0.0) -> float:
         """Now; with a stage name, its time since t0 is added to timing."""
-        if self.timed_stages and dev is not None and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
         now = time.perf_counter()
         if name is not None:
             cell = self.timing.setdefault("loop." + name, [0.0, 0])
@@ -446,17 +442,16 @@ class LoopCloser:
         # relocalization pressure, every second keyframe takes the cheap
         # BoW-only program (a loop start is delayed by at most one keyframe)
         cold_stride = not reloc and not self._consistency_groups and (kf_id & 1) == 1
-        dev = st.kf_q.device
-        t0 = self._clock(dev=dev)
+        t0 = self._clock()
         if cold_stride or (not multi_map and kf_id < self.cfg.recent_gap):
             _bow_program(self.vocab, self.bow_ids, self.bow_w, st.kf_desc, st.kf_feat_valid,
                          kf_id)
-            self._clock("bow_only", t0, dev)
+            self._clock("bow_only", t0)
             return st, corrected0 or c1
         K = st.kf_valid.shape[0]
         Kb = min(-(-(kf_id + 1) // self.ROW_BUCKET) * self.ROW_BUCKET, K)
         packet, groups = _kf_program(self.vocab, self.cfg, self.bow_ids, self.bow_w, st, kf_id, Kb)
-        self._clock("detect", t0, dev)
+        self._clock("detect", t0)
         self._pending = (kf_id, packet, groups)
         return st, corrected0 or c1
 
@@ -479,11 +474,10 @@ class LoopCloser:
         if kf_id - self.last_loop_kf < cfg.recent_gap:
             return st, False
         nc = cfg.n_candidates
-        dev = st.kf_q.device
-        t0 = self._clock(dev=dev)
+        t0 = self._clock()
         arr = np.asarray(self._sync(torch.cat([packet, groups.reshape(-1).to(F32)])),
                          dtype=np.float32)
-        self._clock("packet_read", t0, dev)
+        self._clock("packet_read", t0)
         cand_ids = arr[:nc].astype(int)
         cand_counts = arr[nc:2 * nc]
         n_valid = arr[2 * nc]
@@ -526,7 +520,7 @@ class LoopCloser:
         first candidate; returns (nm, ninl, nrp, disp, S) on the device."""
         cfg = self.cfg
         dev = st.kf_q.device
-        t0 = self._clock(dev=dev)
+        t0 = self._clock()
         n_fix = max(cfg.n_candidates, len(cands))
         cand_v = list(cands) + [cands[0]] * (n_fix - len(cands))
         gen = None
@@ -538,7 +532,7 @@ class LoopCloser:
             gen.manual_seed((7 << 32) | kf_id)
         out = _verify_program(st, kf_id, cand_v, cam, cfg.match_hamming_max, cfg.sim3_chi2,
                               cfg.reproj_radius, samples=samples, generator=gen)
-        self._clock("verify", t0, dev)
+        self._clock("verify", t0)
         return out
 
     def _apply_verify(self, st: MapState, cam: Camera, round_id: int = -1, sync: bool = False):
@@ -556,11 +550,11 @@ class LoopCloser:
         if kf_id - self.last_loop_kf < cfg.recent_gap:
             return st, False  # a newer correction already covered this
         dev = st.kf_q.device
-        t0 = self._clock(dev=dev)
+        t0 = self._clock()
         nc = nm.shape[0]
         maps = st.kf_map_id[torch.tensor(list(cands) + [kf_id], device=dev)]
         vals = self._sync(torch.cat([x.to(torch.float64) for x in (nm, ninl, nrp, disp, maps)]))
-        self._clock("verify_read", t0, dev)
+        self._clock("verify_read", t0)
         nm_h, ninl_h, nrp_h = vals[:nc], vals[nc:2 * nc], vals[2 * nc:3 * nc]
         disp_h = vals[3 * nc:4 * nc]
         map_h = vals[4 * nc:]
@@ -578,10 +572,10 @@ class LoopCloser:
             self.stats = self.stats._replace(verified=self.stats.verified + 1)
             cross_map = int(map_h[r]) != int(map_h[-1])
             self.last_was_merge = cross_map
-            t1 = self._clock(dev=dev)
+            t1 = self._clock()
             if cross_map:
                 st = self._merge_maps(st, kf_id, cand, S_rel)
-                self._clock("merge", t1, dev)
+                self._clock("merge", t1)
             st = self._correct(st, kf_id, cand, S_rel, cam, reloc=reloc, merge=cross_map)
             self.stats = self.stats._replace(corrected=self.stats.corrected + 1,
                                              relocalized=self.stats.relocalized + int(reloc))
@@ -664,13 +658,15 @@ class LoopCloser:
 
         cfg = self.cfg
         dev = st.kf_q.device
-        t_start = self._clock(dev=dev)
+        t_start = self._clock()
         rec = dict(kf_id=kf_id, cand=cand, merge=merge, reloc=reloc, host_reads=0)
+        # stage times are host wall: the device's work lands in the stage
+        # that next reads (the edge, the seam, the inertial refinement's gate)
         last = [t_start]
 
         def lap(stage: str):
             """End of a stage of this correction: its time, here and in timing."""
-            now = self._clock(stage, last[0], dev)
+            now = self._clock(stage, last[0])
             rec[stage + "_ms"] = (now - last[0]) * 1e3
             last[0] = now
 
@@ -717,9 +713,12 @@ class LoopCloser:
         w_c = torch.where(strong[c_i] & strong[c_j], 1.0, cfg.weak_edge_weight).to(F32)
 
         # past loop edges (fixed capacity), then the current one last; one
-        # read of the new edge
-        edge = np.asarray(read(torch.cat([S_rel.q, S_rel.t, S_rel.s.reshape(1)])), np.float32)
+        # read of the new edge, with the pair's keyframe times for the record
+        edge = np.asarray(read(torch.cat([S_rel.q, S_rel.t, S_rel.s.reshape(1),
+                                          st.kf_time[torch.tensor([kf_id, cand], device=dev)]])),
+                          np.float32)
         new_q, new_t, new_s = edge[0:4], edge[4:7], float(edge[7])
+        rec["kf_time"], rec["cand_time"] = float(edge[8]), float(edge[9])
         E = LOOP_EDGE_CAP
         h_i = np.zeros(E, np.int64)
         h_j = np.zeros(E, np.int64)
@@ -832,7 +831,7 @@ class LoopCloser:
         if cfg.run_vi_refine and self.gravity_w is not None:
             st, rec["vi_refine"] = self._vi_refine(st, kf_id, cam, read)
             lap("vi_refine")
-        rec["correct_ms"] = (self._clock("correct", t_start, dev) - t_start) * 1e3
+        rec["correct_ms"] = (self._clock("correct", t_start) - t_start) * 1e3
         self.corrections.append(rec)
         return st
 
@@ -882,8 +881,9 @@ class LoopCloser:
     def _global_ba(self, st: MapState, anchor_kf: int, cam: Camera):
         """Whole-map BA after a correction, on the map's device. The table
         holds the smaller of the budget and the map's capacity, in tiles of
-        at most gba_tile points. Returns (MapState, (points, tiles,
-        iterations))."""
+        at most gba_tile points. Returns (MapState, record): the table's
+        slots, tiles and iterations, and the points it holds (a device
+        scalar: the correction reads nothing for it)."""
         from orbslam3_tpu_torch.parallel.distributed_ba import global_ba, make_point_table
 
         cfg = self.cfg
@@ -900,4 +900,4 @@ class LoopCloser:
         dq = quat.normalize(quat.mul(q, quat.conj(st.kf_q)))
         kf_v = torch.where(opt[:, None], quat.rotate(dq, st.kf_v), st.kf_v)
         return (st._replace(kf_q=q, kf_p=p, kf_v=kf_v, mp_pos=mp_pos),
-                (P, P // tile, cfg.gba_iters))
+                dict(slots=P, tiles=P // tile, iters=cfg.gba_iters, points=pts.pt_valid.sum()))

@@ -24,9 +24,9 @@ initialized, ATE of the corrected and of the raw trajectory, the keyframe
 count, and the closer's service sequence (tests/torch_parity.py::
 record_loop_services). Writes orbslam3_tpu_torch/data/loop_reference.json
 and the vocabularies the runs used (data/vocab_bench.npz,
-data/vocab_revisit.npz, and data/vocab_merge.npz: the merge world of
-tests/test_fused_loop.py, which chip_smoke.py runs), so that both packages
-run the same trees. chip_smoke.py holds the port's runs on the GPU to this
+data/vocab_revisit.npz, data/vocab_reloc.npz, and data/vocab_merge.npz: the
+merge world of tests/test_fused_loop.py, which chip_smoke.py runs), so that
+both packages run the same trees. chip_smoke.py holds the port's runs on the GPU to this
 record.
 
     JAX_PLATFORMS=cpu python scripts/make_loop_reference.py [bench|revisit|reloc ...]
@@ -269,13 +269,14 @@ def reloc_runs():
     times = world.frame_times()
     frames, imu = blackout_frames(world, times, (2.5, 4.5))
     voc = small_world_vocab(world)
+    path, size = save_vocab(voc, "reloc")
     cfg = small_cfg(lost_timeout=30.0, insert_kfs_lost_visual=True)
     rec, ps, slam = run(world, times, frames, imu, cfg, voc, chunk=1, service_every=2,
                         warmup=False,
                         loop_over=dict(recent_gap=3, covis_edge_weight_min=10,
                                        bow_min_score_gate=False))
     return {"world": "tests/test_fused_loop.py::test_blackout_relocalizes_same_map",
-            "n_frames": len(times), **rec, "modes": slam.modes().tolist(),
+            "vocabulary": path, "vocabulary_bytes": size, "n_frames": len(times), **rec, "modes": slam.modes().tolist(),
             "p": np.round(ps.astype(np.float64), 6).tolist()}
 
 

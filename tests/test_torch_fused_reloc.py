@@ -4,7 +4,8 @@ package's recorded run.
 The relocalization world of tests/test_fused_loop.py (384x256, 8 s at
 10 Hz, fast motion, a 2 s camera blackout, lost_timeout=30 s so the atlas
 never spawns a map, lost keyframes inserted): the port on the same frames
-and vocabulary, fed the RANSAC draws JAX makes, against the JAX run recorded
+and vocabulary (data/vocab_reloc.npz, checked to be the test's), fed the
+RANSAC draws JAX makes, against the JAX run recorded
 by scripts/make_loop_reference.py (orbslam3_tpu_torch/data/
 loop_reference.json, "reloc"): the test's bars (no new map, a
 relocalization, OK share after the blackout > 0.9, post-blackout ATE <
@@ -12,8 +13,11 @@ relocalization, OK share after the blackout > 0.9, post-blackout ATE <
 within 2: the front ends differ by single descriptor bits) and the number
 of corrections equal; the relocalization on the same keyframe pair, its
 seam within 0.1 m, and the service sequence equal up to the round after
-it (see test_reloc_world_matches_jax for what is not held after it).
+it (see test_reloc_world_matches_jax for what is not held after it); the
+rule chip_smoke.py holds the card's relocalization-mode rounds to, on both
+runs.
 """
+import importlib.util
 import json
 import os
 
@@ -23,7 +27,7 @@ import pytest
 
 from orbslam3_tpu.io.synthetic import SyntheticConfig, SyntheticWorld
 from orbslam3_tpu_torch.eval.metrics import ate_rmse
-from orbslam3_tpu_torch.interop import from_numpy_tree
+from orbslam3_tpu_torch.loop.vocab import load_npz
 from orbslam3_tpu_torch.models import fused as tfused
 from test_torch_fused_loop import LOOP_OVER, blackout_run, small_cfgs, world_vocab
 from test_torch_loop_closer import jax_draws
@@ -33,8 +37,9 @@ RELOC_WORLD = dict(width=384, height=256, fx=240.0, fy=240.0, n_landmarks=600, d
                    cam_hz=10.0, pos_amp=(1.0, 0.7, 0.25), pos_freq=(0.22, 0.3, 0.35),
                    yaw_amp=0.8, yaw_freq=0.22)
 BLACKOUT = (2.5, 4.5)
-REF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "orbslam3_tpu_torch", "data", "loop_reference.json")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(ROOT, "orbslam3_tpu_torch", "data")
+REF = os.path.join(DATA, "loop_reference.json")
 
 
 @pytest.fixture(scope="module")
@@ -43,16 +48,50 @@ def reloc():
         ref = json.load(f)["reloc"]
     world = SyntheticWorld(SyntheticConfig(**RELOC_WORLD))
     _, tcfg = small_cfgs(lost_timeout=30.0, insert_kfs_lost_visual=True)
+    # the vocabulary file chip_smoke.py runs this world with
+    voc = load_npz(os.path.join(DATA, "vocab_reloc.npz"))
     slam = tfused.FusedSlam(port_camera(world.cam), tcfg, device="cpu", service_every=2,
-                            vocabulary=from_numpy_tree(jax.tree.map(np.asarray,
-                                                                    world_vocab(world))))
+                            vocabulary=voc)
     slam.loop_closer.cfg = slam.loop_closer.cfg._replace(
         **{k: v for k, v in LOOP_OVER.items() if k != "consistency_needed"})
     slam.loop_closer.sampler = jax_draws
     log = record_loop_services(slam, [])
     run = blackout_run(slam, world, BLACKOUT)
     gt_p, _ = world.gt_trajectory()
-    return dict(run, log=log, slam=slam, ref=ref, gt=gt_p)
+    return dict(run, log=log, slam=slam, ref=ref, gt=gt_p, world=world)
+
+
+def test_reloc_vocabulary_file_is_the_tests(reloc):
+    """data/vocab_reloc.npz (scripts/make_loop_reference.py) is the
+    vocabulary tests/test_fused_loop.py trains for this world."""
+    want = jax.tree.map(np.asarray, world_vocab(reloc["world"]))
+    got = reloc["slam"].loop_closer.vocab
+    assert got._fields == want._fields
+    for name in want._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        pairs = zip(a, b) if isinstance(b, tuple) else [(a, b)]
+        assert not isinstance(b, tuple) or len(a) == len(b), name
+        for x, y in pairs:
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=name)
+
+
+def test_reloc_rounds_rule(reloc):
+    """chip_smoke.py's reloc_rounds, the JAX host's rule for the service
+    rounds in relocalization mode, gives from a run's per-frame tracker
+    modes the flags that run passed to its loop closer: the port's run and
+    the recorded JAX run."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    def flags(services):
+        return {e[1]: e[4] for e in services if e[0] == "kf"}
+
+    for modes, services in ((reloc["slam"].modes(), [list(e) for e in reloc["log"]]),
+                            (np.asarray(reloc["ref"]["modes"]), reloc["ref"]["services"])):
+        got = flags(services)
+        rule = chip_smoke.reloc_rounds(modes, 2, max(got))
+        assert {r for r, on in got.items() if on} == rule & set(got) and rule
 
 
 def test_reloc_world_bars(reloc):

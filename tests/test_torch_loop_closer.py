@@ -46,6 +46,7 @@ from orbslam3_tpu.models import slam as jslam
 from orbslam3_tpu_torch.geometry.sim3 import Sim3 as TSim3
 from orbslam3_tpu_torch.interop import carry_loop_closer, from_numpy_tree
 from orbslam3_tpu_torch.loop import closer as tcl
+from orbslam3_tpu_torch.parallel.distributed_ba import make_point_table
 from torch_parity import grow_jax_map, port_camera, record_loop_services, tensor
 
 CAM = Camera.create(240.0, 240.0, 192.0, 128.0, 0.11, 384, 256)
@@ -318,6 +319,8 @@ def test_correct_poses_and_points(corrected):
     assert np.abs(t.kf_p.numpy() - st.kf_p).max() > 0.1  # the correction moved the seam
     rec = tcloser.corrections[-1]
     assert rec["gba"] is None and rec["host_reads"] == 2 and rec["seam_m"] > 0.1
+    # the pair's keyframe times come with the edge's read
+    assert (rec["kf_time"], rec["cand_time"]) == (float(st.kf_time[9]), float(st.kf_time[3]))
     atol = 1e-4
     np.testing.assert_allclose(t.kf_p.numpy()[kf], j.kf_p[kf], rtol=0, atol=atol)
     tq, jq = t.kf_q.numpy()[kf], j.kf_q[kf]
@@ -366,7 +369,10 @@ def test_correct_runs_global_ba_last(revisit):
         rec = t.corrections[-1]
         assert (rec["gba"] is not None) == (gate < 1) and rec["host_reads"] == 2
     want, info = t._global_ba(outs[1], 3, TCAM)
-    assert info == (2048, 1, 2)
+    assert (info["slots"], info["tiles"], info["iters"]) == (2048, 1, 2)
+    # the points the table holds: the valid rows of the point table
+    pts, _ = make_point_table(outs[1], 2048, t.cfg.gba_obs)
+    assert int(info["points"]) == int(pts.pt_valid.sum()) > 0
     for name in ("kf_q", "kf_p", "kf_v", "mp_pos"):
         assert torch.equal(getattr(outs[0], name), getattr(want, name)), name
     assert not torch.equal(outs[0].kf_p, outs[1].kf_p)

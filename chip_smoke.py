@@ -52,8 +52,9 @@ Phases (each raises on failure; nothing is caught):
    wall) and the warmup's wall time. Then compact_map on the run's final
    map at the full capacity shapes, on the card against the CPU (exact)
    with its invariants and its time. From here on the revisit world of 6
-   renders in worker processes in the background, so the times of 5b and
-   5c are taken under that load;
+   renders in worker processes in the background, and the EuRoC fixtures
+   of 8 are written the same way, so the times of 5b and 5c are taken
+   under that load;
 5. a long session on sensor-noise draw 1 of the stereo-inertial path:
    104 frames with a map of 16 keyframe rows, so that compaction and the
    keyframe pressure evictions fire by themselves, held to the JAX
@@ -63,7 +64,11 @@ Phases (each raises on failure; nothing is caught):
    closing on the card against the CPU at real sizes (a k=10, 4-level
    vocabulary trained from the run's keyframe descriptors, sparse BoW
    vectors and scores, Sim3 RANSAC by reprojection at 256 hypotheses, the
-   pose graph at K=256); last of all (5d, after phase 6) the main run's
+   pose graph at K=256); the front end's and the IMU's leaves on one
+   752x480 frame (detect_orb, one launch at B=1, bit for bit against the
+   left of detect_orb_pair; the popcount Hamming distances, orientations,
+   descriptors, subpixel_refine, process_stereo, integrate and
+   information_9 against the CPU); last of all (5d, after phase 8) the main run's
    checkpoint loaded on the card (load_map) and resumed in a new system
    (FusedSlam.from_state) for the frames up to SECOND_STOP: raw poses within
    1 mm of the uninterrupted run (bit-equality is printed), no second IMU
@@ -74,12 +79,14 @@ Phases (each raises on failure; nothing is caught):
    main run's untraced step. The profiled run comes last: once the
    profiler has attached to the CUDA runtime every later launch of the
    process costs more host time;
-6. loop closing, the path this slice adds, before the profiled run: (b) the
-   revisit world of bench.py::build_revisit_world (24 s, 480 frames, a
-   camera blackout at 10-13 s with an IMU bias step, a second lap over the
-   first) under BENCH_CFG with its vocabulary (data/vocab_revisit.npz),
-   chunk=8, service_every=8, warmup=True, MapCapacity() (K=256, M=32768),
-   held to the JAX reference of the same run (at least one correction, the
+6. loop closing, before the profiled run, with the EuRoC runs of 8 in two
+   processes beside 6b-6d: (b) the revisit world of
+   bench.py::build_revisit_world (24 s, a camera blackout at 10-13 s with an
+   IMU bias step, a second lap over the first), its first REVISIT_FRAMES
+   (392) of 480 frames, under BENCH_CFG with its vocabulary
+   (data/vocab_revisit.npz), chunk=8, service_every=8, warmup=True,
+   MapCapacity() (K=256, M=32768), held to the JAX reference of the same run
+   over those frames (at least one correction, the
    count within 1 of the reference's, the first correction on a keyframe
    pair whose times are within 1 s of the reference's pair, as many merges,
    a finite trajectory with one pose a frame), printing ATE, LoopStats, the
@@ -104,6 +111,28 @@ Phases (each raises on failure; nothing is caught):
    keyframes before it on the card with fed samples against the CPU (counts
    exact; the Sim3 and seam of those past the inlier gate within 1e-5); card
    times of the exhaustive detection product and of one global-BA step;
+8. EuRoC ingest, started before 6b and finished before the profiled run:
+   the native loader built with
+   g++ from native/dataloader.cpp (a failed build raises with the
+   compiler's message); the two fixtures of scripts/make_euroc_reference.py
+   written by the port's writer (io/euroc_fixture.py): (ii) 8 s at 20 Hz,
+   752x480, the published EuRoC MH calibration unscaled, and (iii) the
+   24 s, 376x240 loop fixture; rectification of every pair of (ii) on the
+   card against the CPU (flipped uint8 pixels a frame, which must be 0),
+   the remap's CUDA-event time per stereo pair beside its bound and
+   grid_sample's; then, in two spawned processes that run beside phase 6
+   (the card is idle most of a step): (ii) through
+   scripts/run_euroc_torch.py::run at chunk 1
+   under the production configuration (SlamConfig(kf_max_frames=6)), one
+   FAST/NMS launch a frame, held to its JAX record
+   (orbslam3_tpu_torch/data/euroc_reference.json) with the band rule, ok_frac
+   and the IMU's frame; (iii) with the JAX-trained vocabulary
+   (data/euroc_loop_vocab.txt): corrections within 1 of the record's, the
+   first pair's keyframe times within 1 s; (iii) again with a vocabulary
+   the port trains on the card (detect_orb, one launch an image) and
+   round-trips through DBoW2 text: the JAX test's bars (IMU initialized,
+   >= 1 correction, ATE < 0.7 m); frames/s after 8 warm-up frames, the
+   stage table and peak memory of each run;
 7. accuracy of the odometry paths against their JAX references over the
    frames they ran (check_accuracy) and of the session (check_session).
 
@@ -138,6 +167,9 @@ REVISIT_WORLD = dict(duration=24.0, n_landmarks=1500, seed=7, yaw_amp=0.0,
                      accel_bias=(0.03, 0.02, -0.04), bias_step_t=10.0,
                      gyro_bias_step=(0.004, 0.003, -0.005), accel_bias_step=(0.15, -0.10, 0.10))
 REVISIT_BLACKOUT = (10.0, 13.0)
+# the revisit world's frames run on the card: past the reference's first
+# correction (frame 343) and the port's, short of the 480 the world has
+REVISIT_FRAMES = 392
 # tests/test_fused_loop.py::test_blackout_then_merge
 MERGE_WORLD = dict(width=384, height=256, fx=240.0, fy=240.0, n_landmarks=600, duration=8.0,
                    cam_hz=10.0, pos_amp=(1.0, 0.7, 0.25), yaw_amp=0.5)
@@ -553,7 +585,7 @@ def render_revisit_world() -> dict:
         try:
             t0 = time.perf_counter()
             world = SyntheticWorld(SyntheticConfig(**REVISIT_WORLD, **HARD_WORLD))
-            times = world.frame_times()
+            times = world.frame_times()[:REVISIT_FRAMES]
             frames = world.render_sequence(times, blackout=REVISIT_BLACKOUT,
                                            workers=max((os.cpu_count() or 2) - 2, 1))
             box.update(world=world, times=times, frames=frames, seconds=time.perf_counter() - t0)
@@ -579,8 +611,8 @@ def take_rendered(box: dict):
 
 def revisit_run(card, ref, rendered):
     """(b) The revisit world under BENCH_CFG with its vocabulary, as
-    bench.py's revisit pass runs it, held to the JAX reference of the same
-    run. Returns (slam, record, the first correction's recorded input and
+    bench.py's revisit pass runs it, over its first REVISIT_FRAMES frames,
+    held to the JAX reference of the same run over those frames. Returns (slam, record, the first correction's recorded input and
     output, launches)."""
     import numpy as np
     import torch
@@ -636,10 +668,10 @@ def revisit_run(card, ref, rendered):
         f"{peak / 2**20:.1f} MiB (after its global BAs), IMU initialized at frame "
         f"{slam.imu_init_frame} (JAX {ref['imu_init_frame']}), n_kf {rec['n_kf']} (JAX "
         f"{ref['n_kf']}), compactions {slam.compactions} (JAX {ref['compactions']})  [{card}]")
-    log(f"revisit: ATE with loop closing {rec['ate']:.4f} m (JAX {ref['ate_m']:.4f}), raw "
-        f"{rec['ate_raw']:.4f} m (JAX {ref['ate_raw_m']:.4f}), odometry alone not run here (JAX "
-        f"{odo['ate_m']:.4f}), ok_frac {rec['ok_frac']:.4f} (JAX {ref['ok_frac']:.4f}); {st} "
-        f"(JAX {ref['stats']})")
+    log(f"revisit: over {n} frames ATE with loop closing {rec['ate']:.4f} m, raw "
+        f"{rec['ate_raw']:.4f} m, ok_frac {rec['ok_frac']:.4f}, {st} (JAX over its "
+        f"{ref['n_frames']} frames: ATE {ref['ate_m']:.4f}, raw {ref['ate_raw_m']:.4f}, odometry "
+        f"alone {odo['ate_m']:.4f}, ok_frac {ref['ok_frac']:.4f}, {ref['stats']})")
     for i, c in enumerate(ref["corrections"]):
         log(f"revisit, JAX correction {i + 1}: frame {c['frame']}, round {c['service_round']}, "
             f"keyframe {c['kf_id']} (t={c['kf_time']:.2f} s) against {c['cand']} "
@@ -652,9 +684,11 @@ def revisit_run(card, ref, rendered):
     rec["reloc_witness"] = reloc_witness("revisit", slam, rounds, ref)
     if launches != n // CHUNK:
         raise AssertionError(f"revisit: {launches} launches over {n} frames")
-    ref_n = ref["stats"]["corrected"]
+    ref_corr = [c for c in ref["corrections"] if c["frame"] < n]
+    ref_n = len(ref_corr)
     if st.corrected < 1 or abs(st.corrected - ref_n) > 1:
-        raise AssertionError(f"revisit: {st.corrected} corrections, the JAX reference {ref_n}")
+        raise AssertionError(f"revisit: {st.corrected} corrections over {n} frames, the JAX "
+                             f"reference {ref_n}")
     r0 = ref["corrections"][0]
     log(f"revisit: the first correction's query keyframe at t={corr[0]['kf_time']:.2f} s "
         f"({corr[0]['kf_time'] - r0['kf_time']:+.2f} s from the reference's), its candidate at "
@@ -666,7 +700,7 @@ def revisit_run(card, ref, rendered):
                              f"{corr[0]['kf_time']:.2f} / {corr[0]['cand_time']:.2f} s, the "
                              f"reference's at {r0['kf_time']:.2f} / {r0['cand_time']:.2f} s")
     merges = sum(c["merge"] for c in corr)
-    ref_merges = sum(c["merge"] for c in ref["corrections"])
+    ref_merges = sum(c["merge"] for c in ref_corr)
     if merges != ref_merges:
         raise AssertionError(f"revisit: {merges} merges, the reference {ref_merges}")
     return slam, rec, first, launches
@@ -1160,6 +1194,464 @@ def leaves_phase(slam, cam, card):
         f"{float(costs[-1]):.4e}, |card - CPU| {err:.1e}  [{card}]")
 
 
+def front_leaves(left, right, cam, card):
+    """The front end's and the IMU's one-call leaves on the card against
+    the same calls on the CPU, on one 752x480 frame: detect_orb (one image,
+    one launch at B=1) bit for bit against the left of detect_orb_pair on
+    the card; hamming_matrix_popcount and hamming_pairs exact and equal to
+    hamming_matrix; orientations and descriptors (angles 1e-4 rad: the
+    moment product sums in the card's order; descriptors on the card's
+    angles exact); subpixel_refine 1e-6; process_stereo's
+    depth flags exact; integrate and information_9 1e-5 / 1e-4 relative."""
+    import numpy as np
+    import torch
+
+    from orbslam3_tpu_torch.frontend import orb, stereo
+    from orbslam3_tpu_torch.imu import preintegration as pre
+    from orbslam3_tpu_torch.ops import brief, fast, hamming, pyramid
+    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms_levels
+
+    dev = torch.device(DEVICE)
+    L, R = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+    one = orb.detect_orb(L)
+    pair_l, pair_r = orb.detect_orb_pair(L, R)
+    for f in orb.Features._fields:
+        if not torch.equal(getattr(one, f), getattr(pair_l, f)):
+            raise AssertionError(f"leaves: detect_orb's {f} differs from detect_orb_pair's left "
+                                 "on the card")
+    a, b = pair_l.desc, pair_r.desc
+    ham = hamming.hamming_matrix_popcount(a, b)
+    if not (torch.equal(ham, hamming.hamming_matrix(a, b))
+            and torch.equal(ham.cpu(), hamming.hamming_matrix_popcount(a.cpu(), b.cpu()))
+            and torch.equal(hamming.hamming_pairs(a, b).cpu(),
+                            hamming.hamming_pairs(a.cpu(), b.cpu()))):
+        raise AssertionError("leaves: the popcount Hamming distances differ")
+    lv0 = (one.octave == 0) & one.valid
+    ys, xs = one.uv[lv0, 1].round().int(), one.uv[lv0, 0].round().int()
+    ang = brief.orientations(L, ys, xs)
+    ang_c = brief.orientations(L.cpu(), ys.cpu(), xs.cpu())
+    err_ang = float((ang.cpu() - ang_c).abs().max())
+    blurred = pyramid.blur(L[None])[0]
+    desc = brief.descriptors(blurred, ys, xs, ang)
+    desc_c = brief.descriptors(blurred.cpu(), ys.cpu(), xs.cpu(), ang.cpu())
+    score = fast_nms_levels([L[None]], 20.0, 7.0)[0][0]
+    dy, dx = fast.subpixel_refine(score, ys, xs)
+    dy_c, dx_c = fast.subpixel_refine(score.cpu(), ys.cpu(), xs.cpu())
+    err_sub = float(max((dy.cpu() - dy_c).abs().max(), (dx.cpu() - dx_c).abs().max()))
+    sf = stereo.process_stereo(L, R, cam)
+    sf_c = stereo.process_stereo(L.cpu(), R.cpu(), cam.to("cpu"))
+    depth_same = float((sf.has_depth.cpu() == sf_c.has_depth).float().mean())
+    rng = np.random.default_rng(0)
+    g = rng.normal(0, 0.5, (24, 3)).astype(np.float32)
+    acc = (rng.normal(0, 1.0, (24, 3)) + [0, 0, 9.81]).astype(np.float32)
+    win = [torch.from_numpy(x) for x in pre.pad_imu_window(g, acc, np.full(24, 0.005, np.float32),
+                                                             32)]
+    z3 = torch.zeros(3)
+    st_c = pre.integrate(*win, z3, z3)
+    st = pre.integrate(*[w.to(dev) for w in win], z3.to(dev), z3.to(dev))
+    err_imu = max(float(((x.cpu() - y).abs().max() / max(float(y.abs().max()), 1e-30)))
+                  for x, y in zip(st, st_c))
+    info, info_c = pre.information_9(st), pre.information_9(st_c)
+    err_info = float((info.cpu() - info_c).abs().max() / info_c.abs().max())
+    if not (err_ang <= 1e-4 and torch.equal(desc.cpu(), desc_c) and err_sub <= 1e-6
+            and depth_same == 1.0 and err_imu <= 1e-5 and err_info <= 1e-4):
+        raise AssertionError(f"leaves: card against CPU: angles {err_ang}, descriptors equal "
+                             f"{torch.equal(desc.cpu(), desc_c)}, subpixel {err_sub}, depth flags "
+                             f"equal {depth_same}, integrate {err_imu}, information_9 {err_info}")
+    log(f"leaves: detect_orb on a 752x480 frame equals detect_orb_pair's left bit for bit on "
+        f"the card ({int(one.valid.sum())} features); popcount Hamming exact; orientations "
+        f"|card - CPU| {err_ang:.1e}, descriptors exact; subpixel_refine {err_sub:.1e}; "
+        f"process_stereo depth flags equal ({int(sf.has_depth.sum())} with depth); integrate "
+        f"{err_imu:.1e} relative, information_9 {err_info:.1e}  [{card}]")
+
+
+# the EuRoC phase's device (a CPU rehearsal of it sets "cpu")
+DEVICE = "cuda"
+
+
+def sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+# scripts/make_euroc_reference.py's fixtures (ii) and (iii)
+EUROC_FIXTURES = {"full": dict(duration=8.0, hz=20.0, scale=1.0, seed=7),
+                  "loop": dict(duration=24.0, hz=10.0, scale=0.5, seed=7, revisit=True)}
+
+
+def write_euroc_fixtures(workers: int = 2) -> dict:
+    """Start writing fixtures (ii) and (iii) with the port's writer in a
+    background thread (its rendering processes are spawned); the result is
+    taken with `take_fixtures`."""
+    import tempfile
+    import threading
+
+    from orbslam3_tpu_torch.io.euroc_fixture import write_fixture
+
+    box = {"dir": tempfile.TemporaryDirectory()}
+
+    def work():
+        try:
+            t0 = time.perf_counter()
+            box["seqs"] = {name: os.path.dirname(write_fixture(
+                os.path.join(box["dir"].name, name), workers=workers, **kw))
+                for name, kw in EUROC_FIXTURES.items()}
+            box["seconds"] = time.perf_counter() - t0
+        except BaseException as e:  # handed to the main thread by take_fixtures
+            box["error"] = e
+
+    box["thread"] = threading.Thread(target=work, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def take_fixtures(box: dict) -> dict:
+    """{name: sequence directory} of a write_euroc_fixtures, waiting for it."""
+    t0 = time.perf_counter()
+    box["thread"].join()
+    if "error" in box:
+        raise box["error"]
+    log(f"EuRoC fixtures (ii) and (iii) written by the port's writer in {box['seconds']:.1f} s "
+        f"in the background (waited {time.perf_counter() - t0:.1f} s for them here)")
+    return box["seqs"]
+
+
+def remap_check(seq: str, card: str) -> dict:
+    """Rectification on the card over every stereo pair of a sequence,
+    against the same remap on the CPU: the uint8 images the tracker gets
+    (flips: pixels whose truncation differs), the floats, and the pixels
+    within 1e-4 of an integer (where a flip could land); CUDA-event time of
+    one stereo pair's remap, its bound, and grid_sample's time on the same
+    pair (bilinear, zero padding, its own rounding)."""
+    import numpy as np
+    import torch
+
+    from orbslam3_tpu_torch.io import native
+    from orbslam3_tpu_torch.io.euroc import EurocDataset
+    from orbslam3_tpu_torch.io.rectify import remap_bilinear
+    from run_euroc_torch import rectified_camera
+
+    ds = EurocDataset(seq)
+    _, tables = rectified_camera(ds, DEVICE)
+    tables_c = [t.cpu() for t in tables]
+    flips, near, err = [], 0, 0.0
+    for i in range(len(ds)):
+        for img, (mx, my), (mx_c, my_c) in zip(ds.stereo_pair_u8(i), (tables[:2], tables[2:]),
+                                                (tables_c[:2], tables_c[2:])):
+            x = torch.from_numpy(img)
+            out = remap_bilinear(x.to(DEVICE).float(), mx, my).cpu()
+            out_c = remap_bilinear(x.float(), mx_c, my_c)
+            err = max(err, float((out - out_c).abs().max()))
+            near += int(((out_c - out_c.round()).abs() < 1e-4).sum())
+            flips.append(int((out.to(torch.uint8) != out_c.to(torch.uint8)).sum()))
+    left, right = [torch.from_numpy(x).to(DEVICE) for x in ds.stereo_pair_u8(len(ds) // 2)]
+
+    def pair():
+        remap_bilinear(left.float(), *tables[:2]).to(torch.uint8)
+        remap_bilinear(right.float(), *tables[2:]).to(torch.uint8)
+
+    ms = cuda_ms(pair, 100)
+    h, w = left.shape
+    grids = [torch.stack([mx / (w - 1) * 2 - 1, my / (h - 1) * 2 - 1], -1)[None]
+             for mx, my in (tables[:2], tables[2:])]
+
+    def library():
+        for img, grid in zip((left, right), grids):
+            torch.nn.functional.grid_sample(img.float()[None, None], grid, mode="bilinear",
+                                            padding_mode="zeros", align_corners=True)
+
+    lib_ms = cuda_ms(library, 100)
+    # per image: the uint8 image and two float maps read, the uint8 image written
+    nbytes = 2 * h * w * (1 + 8 + 1)
+    rec = dict(frames=len(ds), flips_per_frame=float(np.sum(flips)) / len(ds),
+               max_flips_image=max(flips), near_integer_pixels=near, max_abs_err=err, ms=ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, library_ms=lib_ms,
+               native_loader=native.available())
+    log(f"EuRoC rectification: {rec['frames']} stereo pairs {w}x{h} remapped on the card and on "
+        f"the CPU: {rec['flips_per_frame']:.3f} flipped uint8 pixels a frame (at most "
+        f"{rec['max_flips_image']} in one image), {near} pixels within 1e-4 of an integer, "
+        f"|card - CPU| {err:.1e} on 0..255; a stereo pair's remap {ms:.4f} ms by CUDA events "
+        f"(bound {rec['bound_ms']:.4f} ms by bytes; grid_sample {lib_ms:.4f} ms)  [{card}]")
+    if max(flips) > 0 or err > 1e-4:
+        raise AssertionError(f"EuRoC rectification: the card's remap differs from the CPU's "
+                             f"({max(flips)} flips in one image, {err} on the floats)")
+    return rec
+
+
+def euroc_run(path: str, tag: str, seq: str, profile: str, card: str, vocab_path=None,
+              loop_cfg=None):
+    """One sequence through scripts/run_euroc_torch.py::run on the card at
+    chunk 1, with the launch counter set to 0 just before and read just
+    after (one FAST/NMS launch a frame), frames/s after WARMUP frames and
+    peak device memory. Returns its record."""
+    import numpy as np
+    import torch
+
+    from orbslam3_tpu_torch.eval.metrics import ate_rmse
+    from orbslam3_tpu_torch.io.euroc import EurocDataset
+    from orbslam3_tpu_torch.models.fused import MODE_OK
+    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms
+    from run_euroc_torch import run
+
+    box = {}
+
+    def on_frame(i, slam):
+        box["slam"] = slam
+        if i == WARMUP:
+            sync()
+            box["slam"].timing.clear()
+            box["t0"] = time.perf_counter()
+        if i == box.get("n"):
+            sync()
+            box["elapsed"] = time.perf_counter() - box["t0"]
+
+    ds = EurocDataset(seq)
+    box["n"] = len(ds)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fast_nms.launches = 0
+    t0 = time.perf_counter()
+    result = run(seq, os.path.join(os.path.dirname(seq), tag + "_out"), profile=profile,
+                 vocab_path=vocab_path, loop_cfg=loop_cfg, device=DEVICE, hook=on_frame)
+    wall = time.perf_counter() - t0
+    launches = fast_nms.launches
+    slam = box["slam"]
+    _, ps, _ = slam.trajectory_arrays(corrected=True)
+    _, ps_raw, _ = slam.trajectory_arrays(corrected=False)
+    gt = ds.groundtruth_at_frames()
+    n = len(ps)
+    if ps.shape != (box["n"], 3) or not np.all(np.isfinite(ps)):
+        raise AssertionError(f"{path}: trajectory not finite or of shape {ps.shape}")
+    rec = dict(result, ate=float(ate_rmse(ps - ps[0], gt[:n])),
+               ate_raw=float(ate_rmse(ps_raw - ps_raw[0], gt[:n])),
+               ok_frac=float((slam.modes() == MODE_OK).mean()), imu_init_frame=slam.imu_init_frame,
+               fps=(n - WARMUP) / box["elapsed"], wall_s=wall, launches=launches,
+               peak_mib=(torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0) / 2**20)
+    if slam.loop_closer is not None:
+        rec["corrections"] = [{k: v for k, v in c.items() if not k.endswith("_ms")}
+                              for c in slam.loop_closer.corrections]
+    log(f"{path}: {n} frames {ds.cam0.resolution[0]}x{ds.cam0.resolution[1]}, {rec['fps']:.3f} "
+        f"frames/s after {WARMUP} warm-up frames ({wall:.1f} s in all), fast_nms launches "
+        f"{launches}, native loader {result['native_loader']}, peak device memory "
+        f"{rec['peak_mib']:.1f} MiB, keyframes {result['keyframes']}, IMU initialized after frame "
+        f"{slam.imu_init_frame}  [{card}]")
+    log(f"{path} timing_report (host wall, ms/call): " + json.dumps(slam.timing_report()))
+    stage_table(path, slam.timing_report(), card)
+    if launches != LAUNCHES_PER_FRAME * n:
+        raise AssertionError(f"{path}: fast_nms launched {launches} times over {n} frames")
+    return rec
+
+
+def check_euroc(path: str, rec: dict, ref: dict):
+    """A EuRoC run against its JAX record: the band rule on the corrected
+    and the raw trajectory, ok_frac, the IMU's frame."""
+    log(f"accuracy, {path}: ATE {rec['ate']:.5f} m (JAX {ref['ate_corrected_m']:.5f}), raw "
+        f"{rec['ate_raw']:.5f} m (JAX {ref['ate_raw_m']:.5f}), ok_frac {rec['ok_frac']:.4f} (JAX "
+        f"{ref['ok_frac']:.4f}), keyframes {rec['keyframes']} (JAX {ref['keyframes']}), IMU "
+        f"initialized after frame {rec['imu_init_frame']} (JAX {ref['imu_init_frame']})")
+    if rec["imu_init_frame"] != ref["imu_init_frame"]:
+        raise AssertionError(f"{path}: the IMU initialized after frame {rec['imu_init_frame']}, "
+                             f"the reference after {ref['imu_init_frame']}")
+    if rec["ok_frac"] < ref["ok_frac"] - 0.05:
+        raise AssertionError(f"{path}: ok_frac {rec['ok_frac']:.4f} below the reference - 0.05")
+    for mine, theirs in ((rec["ate"], ref["ate_corrected_m"]), (rec["ate_raw"], ref["ate_raw_m"])):
+        if abs(mine - theirs) > band(theirs):
+            raise AssertionError(f"{path}: ATE {mine:.4f} m outside the JAX band {theirs:.4f} +- "
+                                 f"{band(theirs):.4f}")
+
+
+def train_fixture_vocab(seq: str, out_path: str) -> dict:
+    """tests/test_euroc_e2e.py::_train_fixture_vocab on the card with the
+    port: detect_orb (one launch each) on every len // 12-th rectified left
+    image, a k=10, 3-level vocabulary, written as DBoW2 text and loaded
+    back (the load is held equal to the trained vocabulary)."""
+    import numpy as np
+    import torch
+
+    from orbslam3_tpu_torch.frontend.orb import OrbConfig, detect_orb
+    from orbslam3_tpu_torch.io.euroc import EurocDataset
+    from orbslam3_tpu_torch.io.rectify import remap_bilinear
+    from orbslam3_tpu_torch.loop import vocab as vb
+    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms
+    from run_euroc_torch import rectified_camera
+
+    t0 = time.perf_counter()
+    ds = EurocDataset(seq)
+    _, (mx0, my0, _, _) = rectified_camera(ds, DEVICE)
+    oc = OrbConfig(n_features=384, n_levels=4)
+    descs, docs = [], []
+    launches0 = fast_nms.launches
+    images = range(0, len(ds), max(len(ds) // 12, 1))
+    for di, i in enumerate(images):
+        left, _ = ds.stereo_pair_u8(i)
+        f = detect_orb(remap_bilinear(torch.from_numpy(left).to(DEVICE).float(), mx0, my0), oc)
+        d = f.desc[f.valid].cpu().numpy()
+        if len(d):
+            descs.append(d)
+            docs.append(np.full(len(d), di))
+    launches = fast_nms.launches - launches0
+    voc = vb.train_vocabulary(np.concatenate(descs), k=10, levels=3, doc_ids=np.concatenate(docs))
+    vb.save_dbow2_text(voc, out_path)
+    back = vb.load_dbow2_text(out_path)
+    same = (len(back.level_desc) == len(voc.level_desc)
+            and all(torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+                    for a, b in zip(voc.level_desc, back.level_desc))
+            and torch.allclose(torch.as_tensor(voc.idf), torch.as_tensor(back.idf), rtol=1e-6))
+    if not same:
+        raise AssertionError("the DBoW2 text round trip changed the vocabulary")
+    log(f"EuRoC loop fixture: the port's vocabulary (k=10, 3 levels) from {len(images)} "
+        f"rectified left images ({len(descs)} with features), {sum(len(d) for d in descs)} "
+        f"descriptors, detect_orb launches {launches}, "
+        f"through DBoW2 text ({os.path.getsize(out_path)} bytes) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if launches != LAUNCHES_PER_FRAME * len(images):
+        raise AssertionError(f"detect_orb launched the kernel {launches} times for "
+                             f"{len(images)} images")
+    return dict(images=len(images), launches=launches)
+
+
+def euroc_loop_jax_vocab(seq: str, ref: dict, card: str) -> dict:
+    """Run (iii) with the JAX-trained vocabulary (data/euroc_loop_vocab.txt):
+    corrections within 1 of the record's, the first pair's keyframe times
+    within 1 s of the record's."""
+    from orbslam3_tpu_torch.loop.closer import LoopConfig
+
+    loop = euroc_run("EuRoC (iii) loop, JAX vocabulary", "loop_jax", seq, "small", card,
+                     vocab_path=os.path.join(ROOT, ref["vocabulary"]),
+                     loop_cfg=LoopConfig(bow_min_score_gate=False))
+    got, want = loop["corrections"], ref["corrections"]
+    for i, c in enumerate(want):
+        log(f"EuRoC (iii), JAX correction {i + 1}: frame {c['frame']}, keyframe {c['kf_id']} "
+            f"(t={c['kf_time']:.2f} s) against {c['cand']} (t={c['cand_time']:.2f} s), seam "
+            f"{c['seam_m']:.3f} m")
+    for i, c in enumerate(got):
+        log(f"EuRoC (iii), correction {i + 1}: keyframe {c['kf_id']} (t={c['kf_time']:.2f} s) "
+            f"against {c['cand']} (t={c['cand_time']:.2f} s), seam {c['seam_m']:.3f} m  [{card}]")
+    log(f"EuRoC (iii) with the JAX vocabulary: ATE {loop['ate']:.4f} m (JAX "
+        f"{ref['ate_corrected_m']:.4f}), raw {loop['ate_raw']:.4f} (JAX {ref['ate_raw_m']:.4f}), "
+        f"ok_frac {loop['ok_frac']:.4f} (JAX {ref['ok_frac']:.4f}), IMU initialized after frame "
+        f"{loop['imu_init_frame']} (JAX {ref['imu_init_frame']})  [{card}]")
+    if not got or abs(len(got) - len(want)) > 1:
+        raise AssertionError(f"EuRoC (iii): {len(got)} corrections, the JAX record {len(want)}")
+    if not (abs(got[0]["kf_time"] - want[0]["kf_time"]) <= 1.0
+            and abs(got[0]["cand_time"] - want[0]["cand_time"]) <= 1.0):
+        raise AssertionError(f"EuRoC (iii): the first correction on keyframes at t="
+                             f"{got[0]['kf_time']:.2f} / {got[0]['cand_time']:.2f} s, the "
+                             f"record's at {want[0]['kf_time']:.2f} / {want[0]['cand_time']:.2f} s")
+    return loop
+
+
+def euroc_loop_own_vocab(seq: str, card: str) -> dict:
+    """Run (iii) with a vocabulary the port trains on the card, round-tripped
+    through DBoW2 text, held to the JAX test's bars (IMU initialized, at
+    least one correction, ATE < 0.7 m)."""
+    import tempfile
+
+    from orbslam3_tpu_torch.loop.closer import LoopConfig
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "voc.txt")
+        training = train_fixture_vocab(seq, path)
+        own = euroc_run("EuRoC (iii) loop, the port's vocabulary", "loop_own", seq, "small", card,
+                        vocab_path=path, loop_cfg=LoopConfig(bow_min_score_gate=False))
+    log(f"EuRoC (iii) with the port's vocabulary: {own['loop_corrections']} corrections, ATE "
+        f"{own['ate']:.4f} m (raw {own['ate_raw']:.4f}), IMU initialized {own['imu_initialized']}"
+        f"  [{card}]")
+    if not (own["imu_initialized"] and own["loop_corrections"] >= 1 and own["ate"] < 0.7):
+        raise AssertionError(f"EuRoC (iii) with the port's vocabulary misses the JAX test's bars "
+                             f"(IMU initialized, >= 1 correction, ATE < 0.7 m): {own}")
+    return dict(loop_own_vocab=own, vocab_training=training)
+
+
+def euroc_worker(task: str, seqs: dict, ref: dict, card: str, log_path: str, out_path: str,
+                 settings: dict):
+    """One EuRoC task in a spawned process: "full_and_loop" runs (ii), held
+    to its record, then (iii) with the JAX vocabulary; "loop_own" trains the
+    port's vocabulary and runs (iii) with it. Its log goes to log_path and
+    its record, or the error, to out_path as JSON."""
+    import traceback
+
+    globals().update(settings)
+    sys.stdout = open(log_path, "w", buffering=1)
+    try:
+        if task == "full_and_loop":
+            full = euroc_run("EuRoC (ii) full width", "full", seqs["full"], "full", card)
+            check_euroc("EuRoC (ii) full width", full, ref["full"])
+            out = dict(full=full, loop_jax_vocab=euroc_loop_jax_vocab(seqs["loop"], ref["loop"],
+                                                                      card))
+        else:
+            out = euroc_loop_own_vocab(seqs["loop"], card)
+    except BaseException:
+        out = {"error": traceback.format_exc()}
+    with open(out_path, "w") as f:
+        json.dump(out, f, default=str)
+
+
+def euroc_start(fixtures: dict, ref: dict, card: str) -> dict:
+    """EuRoC ingest on the card, started: the native loader built from the
+    checkout, rectification of (ii) against the CPU here, then the runs in
+    two spawned processes beside whatever this process runs next (the card
+    is idle most of a step, the host has cores to spare): (ii) and (iii)
+    with the JAX vocabulary in one, the port's vocabulary and (iii) with it
+    in the other. `euroc_finish` waits for them and prints their logs."""
+    import multiprocessing
+
+    from orbslam3_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    native.build(force=True)
+    log(f"native loader: built {native._LIB_PATH} with {native.COMPILER} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    seqs = take_fixtures(fixtures)
+    remap = remap_check(seqs["full"], card)
+    ctx = multiprocessing.get_context("spawn")
+    settings = dict(DEVICE=DEVICE, LAUNCHES_PER_FRAME=LAUNCHES_PER_FRAME)
+    procs = {}
+    for task in ("full_and_loop", "loop_own"):
+        paths = [os.path.join(fixtures["dir"].name, f"{task}.{x}") for x in ("log", "json")]
+        p = ctx.Process(target=euroc_worker, args=(task, seqs, ref, card, *paths, settings))
+        p.start()
+        procs[task] = (p, *paths)
+    return dict(fixtures=fixtures, procs=procs, remap=remap, t0=time.perf_counter())
+
+
+def euroc_finish(handle: dict, timeout_s: float = 900.0) -> dict:
+    """Wait for the EuRoC processes, print their logs, and raise if either
+    failed one of its holds."""
+    t0 = time.perf_counter()
+    out, errors = {"remap": handle["remap"]}, []
+    try:
+        for task, (p, log_path, out_path) in handle["procs"].items():
+            p.join(max(timeout_s - (time.perf_counter() - t0), 1.0))
+            if p.is_alive():
+                errors.append(f"{task}: still running after {timeout_s:.0f} s")
+                continue
+            with open(log_path) as f:
+                for line in f:
+                    log(f"[EuRoC {task}] {line.rstrip()}")
+            if not os.path.exists(out_path):
+                errors.append(f"{task}: exited with code {p.exitcode} and no record")
+                continue
+            with open(out_path) as f:
+                rec = json.load(f)
+            if "error" in rec:
+                errors.append(f"{task}:\n{rec['error']}")
+            out.update(rec)
+    finally:
+        for p, _, _ in handle["procs"].values():
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+        handle["fixtures"]["dir"].cleanup()
+    log(f"EuRoC runs: done {time.perf_counter() - handle['t0']:.1f} s after they started (waited "
+        f"{time.perf_counter() - t0:.1f} s for them here)")
+    if errors:
+        raise AssertionError("EuRoC ingest failed:\n" + "\n".join(errors))
+    return out
+
+
 def run_slice(world, times, frames, imu, cfg, device=None, profile_at=None, chunk=1,
               slam=None, start=0, stop=None, finalize=True, hook=None):
     """FusedSlam.process_frame over frames [start, stop), on the device
@@ -1465,6 +1957,7 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
     try:
         import orbslam3_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -1567,6 +2060,7 @@ def main() -> int:
     # the revisit world renders in the background from here on: the times of
     # phases 5b and 5c are taken under that load, those before it are not
     revisit_frames = render_revisit_world()
+    fixtures = write_euroc_fixtures()
 
     # ---- 5. the long session and the leaves of loop closing; the main run
     # resumed from its checkpoint comes last (a profiler window after the IMU
@@ -1574,12 +2068,18 @@ def main() -> int:
     phase("5b the long session: 16 keyframe rows, compaction by itself")
     m = SESSION_FRAMES
     session = session_run(world, times[:m], frames[:m], imu[:m], gt_p, card)
-    phase("5c the leaves of loop closing on the card")
+    phase("5c the leaves of loop closing and of the front end on the card")
     leaves_phase(vi, vi.cam, card)
+    front_leaves(frames[0][0].astype(np.float32), frames[0][1].astype(np.float32), vi.cam, card)
 
     # ---- 6. loop closing: the revisit world, the merge world, the
     # relocalization world, the first correction again on its recorded state
-    phase("6b loop closing: the revisit world (480 frames)")
+    phase("8 EuRoC ingest, started: native loader, rectification; the runs in two processes "
+          "beside phases 6b-6d")
+    with open(os.path.join(data, "euroc_reference.json")) as f:
+        euroc_handle = euroc_start(fixtures, json.load(f), card)
+
+    phase(f"6b loop closing: the revisit world ({REVISIT_FRAMES} frames)")
     rv, rv_rec, rv_first, launches_revisit = revisit_run(card, ref_loop["revisit"],
                                                          revisit_frames)
     rv_cam, rv_cfg = rv.cam, rv.loop_closer.cfg
@@ -1591,6 +2091,9 @@ def main() -> int:
     phase("6d loop closing: the first correction again, its verification against the CPU")
     hot = loop_reproducibility(rv_first, load_vocab("revisit"), rv_cfg, rv_cam, card)
     del rv_first
+
+    phase("8 EuRoC ingest: the runs' results")
+    euroc = euroc_finish(euroc_handle)
 
     phase("5d the main run resumed from its checkpoint, with the profiler window (last)")
     us_frame = resume_and_profile(world, *main_frames, vi, ckpt, saved, card)
@@ -1616,11 +2119,19 @@ def main() -> int:
         "launches_by_path": {"stereo": launches_stereo, "stereo_inertial": launches,
                              "loop_bench_chunk8": launches_chunk,
                              "loop_revisit_chunk8": launches_revisit,
-                             "loop_merge": launches_merge, "loop_reloc": reloc["launches"]},
+                             "loop_merge": launches_merge, "loop_reloc": reloc["launches"],
+                             "euroc_full_width": euroc["full"]["launches"],
+                             "euroc_loop_jax_vocab": euroc["loop_jax_vocab"]["launches"],
+                             "euroc_loop_own_vocab": euroc["loop_own_vocab"]["launches"],
+                             "detect_orb_vocab_training": euroc["vocab_training"]["launches"]},
         "chunk8": {**kern16, "frames_per_s": fps_chunk, "chunk1_frames_per_s": fps},
         "loop": {"bench_warmup_s": warm_a, "revisit": {k: v for k, v in rv_rec.items()
                                                         if k != "corrections"},
                  "merge_post_ate_m": ate_merge, "reloc": reloc, **hot},
+        "euroc": {"remap": euroc["remap"], **{
+            k: {f: euroc[k][f] for f in ("fps", "wall_s", "ate", "ate_raw", "ok_frac",
+                                         "imu_init_frame", "keyframes", "peak_mib")}
+            for k in ("full", "loop_jax_vocab", "loop_own_vocab")}},
         "library_ms": None, "profile_ms": us_frame / 1e3,
         "earlier_ms_is": "8 one-level launches of this kernel, the call pattern before the "
                          "levels were fused, timed in this run",

@@ -56,6 +56,13 @@ def level_quotas(cfg: OrbConfig):
     return quotas
 
 
+def detect_orb(img, cfg: OrbConfig = OrbConfig()) -> Features:
+    """(H, W) float32 grayscale -> Features with n_features slots: a batch
+    of one through the same FAST/NMS launch, with the bits the image gets
+    as the left of a stereo pair (`detect_orb_pair`)."""
+    return Features(*[a[0] for a in detect_orb_batch(img[None], cfg)])
+
+
 def detect_orb_batch(imgs, cfg: OrbConfig = OrbConfig()) -> Features:
     """(B, H, W) float32 -> Features with a leading batch axis B."""
     levels = pyr_ops.build_pyramid(imgs, cfg.n_levels, cfg.scale_factor)

@@ -10,7 +10,7 @@ from typing import NamedTuple
 import torch
 
 from orbslam3_tpu_torch.frontend.camera import Camera
-from orbslam3_tpu_torch.frontend.orb import Features
+from orbslam3_tpu_torch.frontend.orb import Features, OrbConfig, detect_orb_pair
 from orbslam3_tpu_torch.ops.hamming import hamming_matrix
 
 
@@ -21,6 +21,16 @@ class StereoConfig(NamedTuple):
     min_depth: float = 0.3  # [m]
     max_depth: float = 60.0  # [m]
     octave_tol: int = 1
+
+
+class StereoFrame(NamedTuple):
+    """Stereo-processed frame: left features + right matches + depth."""
+
+    feat: Features  # left-image features
+    u_right: torch.Tensor  # (N,) right-image u coord, -1 if unmatched
+    depth: torch.Tensor  # (N,) metric depth, -1 if unmatched
+    points_cam: torch.Tensor  # (N, 3) camera-frame 3D points (garbage if no depth)
+    has_depth: torch.Tensor  # (N,) bool
 
 
 def pow12(octave):
@@ -65,3 +75,13 @@ def match_stereo(left: Features, right: Features, cam: Camera, cfg: StereoConfig
     u_r = torch.where(ok, u_r, torch.full_like(u_r, -1.0))
     depth = torch.where(ok, depth, torch.full_like(depth, -1.0))
     return u_r, depth, ok
+
+
+def process_stereo(img_left, img_right, cam: Camera, orb_cfg: OrbConfig = OrbConfig(),
+                   stereo_cfg: StereoConfig = StereoConfig()) -> StereoFrame:
+    """The stereo front end of one (H, W) float32 pair: detect both images
+    in one batch, match, unproject the matched features."""
+    left, right = detect_orb_pair(img_left, img_right, orb_cfg)
+    u_r, depth, has_depth = match_stereo(left, right, cam, stereo_cfg)
+    pts = cam.unproject(left.uv, torch.where(has_depth, depth, torch.ones_like(depth)))
+    return StereoFrame(feat=left, u_right=u_r, depth=depth, points_cam=pts, has_depth=has_depth)

@@ -1,8 +1,8 @@
 """IMU preintegration on manifold (Forster et al., TRO 2017).
 
-Port of the parts of orbslam3_tpu/imu/preintegration.py the stereo slice
-runs: `PreintState`, `merge`, `integrate_assoc`, `propagate` (with its bias
-correction), `imu_residual` and `pad_imu_window`. Deltas are gravity-free;
+Port of orbslam3_tpu/imu/preintegration.py: `PreintState`, `integrate`
+(the sequential scan), `merge`, `integrate_assoc`, `propagate` (with its
+bias correction), `imu_residual`, `information_9` and `pad_imu_window`. Deltas are gravity-free;
 gravity appears only in `propagate` and the residual. The error-state
 ordering of the 15x15 covariance is [dphi, dv, dp, dbg, dba].
 
@@ -80,6 +80,80 @@ def _eye(n, like):
 
 def _mT(x):
     return x.transpose(-1, -2)
+
+
+def integrate(gyro, acc, dts, mask, bias_g, bias_a, noise: ImuNoise = ImuNoise()):
+    """Preintegrate a padded sample window sample by sample (the JAX
+    package's lax.scan): gyro/acc (N, 3), dts (N,), mask (N,) bool/float
+    (padding rows contribute nothing), biases (3,) held fixed. Returns the
+    window's PreintState; `integrate_assoc` computes the same by a tree of
+    merges."""
+    maskf = mask.to(torch.float32)
+    dts = dts * maskf
+    dev = gyro.device
+    I3 = torch.eye(3, dtype=torch.float32, device=dev)
+    qdiag = torch.tensor([noise.sigma_g**2] * 3 + [noise.sigma_a**2] * 3, dtype=torch.float32,
+                         device=dev)
+    bw = torch.diag(torch.tensor([noise.sigma_bg**2] * 3 + [noise.sigma_ba**2] * 3,
+                                 dtype=torch.float32, device=dev))
+    c = PreintState.identity(bias_g, bias_a, device=dev)
+    for k in range(gyro.shape[0]):
+        w = gyro[k] - c.bias_g
+        a = acc[k] - c.bias_a
+        dt = dts[k]
+        dt_safe = torch.where(dt > 0, dt, torch.ones_like(dt))
+        R_k = quat.to_matrix(c.dq)
+        wdt = w * dt
+        dR = so3.exp_matrix(wdt)
+        Jr = so3.right_jacobian(wdt)
+        Ra_hat = R_k @ so3.hat(a)
+
+        # covariance propagation before the state update (Forster A.8/9)
+        A = torch.zeros((15, 15), dtype=torch.float32, device=dev)
+        A[0:3, 0:3] = dR.T
+        A[3:6, 0:3] = -Ra_hat * dt
+        A[3:6, 3:6] = I3
+        A[6:9, 0:3] = -0.5 * Ra_hat * dt * dt
+        A[6:9, 3:6] = I3 * dt
+        A[6:9, 6:9] = I3
+        A[0:3, 9:12] = -Jr * dt
+        A[3:6, 12:15] = -R_k * dt
+        A[6:9, 12:15] = -0.5 * R_k * dt * dt
+        A[9:15, 9:15] = torch.eye(6, dtype=torch.float32, device=dev)
+        B = torch.zeros((15, 6), dtype=torch.float32, device=dev)
+        B[0:3, 0:3] = Jr * dt
+        B[3:6, 3:6] = R_k * dt
+        B[6:9, 3:6] = 0.5 * R_k * dt * dt
+        Q = torch.diag(qdiag / dt_safe)
+        cov = A @ c.cov @ A.T + B @ Q @ B.T
+        cov = cov.clone()
+        cov[9:15, 9:15] = cov[9:15, 9:15] + bw * dt
+
+        # bias Jacobians from the values before the update
+        J_p_bg = c.J_p_bg + c.J_v_bg * dt - 0.5 * (Ra_hat @ c.J_r_bg) * dt * dt
+        J_p_ba = c.J_p_ba + c.J_v_ba * dt - 0.5 * R_k * dt * dt
+        J_v_bg = c.J_v_bg - (Ra_hat @ c.J_r_bg) * dt
+        J_v_ba = c.J_v_ba - R_k * dt
+        J_r_bg = dR.T @ c.J_r_bg - Jr * dt
+
+        # mean update at the midpoint attitude
+        R_mid = R_k @ so3.exp_matrix(0.5 * wdt)
+        Ra_dt = (R_mid @ a) * dt
+        new = PreintState(
+            dq=quat.normalize(quat.mul(c.dq, quat.from_axis_angle(wdt))),
+            dv=c.dv + Ra_dt, dp=c.dp + c.dv * dt + 0.5 * Ra_dt * dt, dt=c.dt + dt, cov=cov,
+            J_r_bg=J_r_bg, J_v_bg=J_v_bg, J_v_ba=J_v_ba, J_p_bg=J_p_bg, J_p_ba=J_p_ba,
+            bias_g=c.bias_g, bias_a=c.bias_a)
+        on = maskf[k] > 0
+        c = PreintState(*[torch.where(on, n, o) for n, o in zip(new, c)])
+    return c
+
+
+def information_9(st: PreintState):
+    """9x9 information matrix of [r_R, r_v, r_p] from the covariance."""
+    cov9 = st.cov[0:9, 0:9]
+    cov9 = 0.5 * (cov9 + cov9.T) + _eye(9, cov9) * 1e-8
+    return torch.linalg.inv(cov9)
 
 
 def bias_corrected_delta(st: PreintState, bias_g, bias_a):

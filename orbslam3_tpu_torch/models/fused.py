@@ -516,6 +516,21 @@ def _retarget_tracker(ts: TrackState, q_old, p_old, q_new, p_new,
     )
 
 
+def _as_u8(img):
+    """A frame as uint8: a tensor stays on its device, anything else becomes
+    a numpy array."""
+    if isinstance(img, torch.Tensor):
+        return img if img.dtype == torch.uint8 else img.to(torch.uint8)
+    return np.asarray(img, np.uint8) if img.dtype != np.uint8 else img
+
+
+def _upload(xs: list, dev):
+    """Stack same-shape host arrays or tensors into one tensor on `dev`."""
+    if isinstance(xs[0], torch.Tensor):
+        return torch.stack(xs).to(dev)
+    return torch.from_numpy(np.stack(xs)).to(dev)
+
+
 class FusedSlam:
     """Host wrapper around the SLAM step: streams frames, keeps per-frame
     outputs on the device and reads them at the end, and runs the rare
@@ -694,8 +709,7 @@ class FusedSlam:
     def process_frame(self, left, right, gyro, acc, dts, t: float):
         t0 = self._tic()
         g, a, d, m = self._pad_imu(gyro, acc, dts)
-        l_u8 = np.asarray(left, np.uint8) if left.dtype != np.uint8 else left
-        r_u8 = np.asarray(right, np.uint8) if right.dtype != np.uint8 else right
+        l_u8, r_u8 = _as_u8(left), _as_u8(right)
         out = None
         if self.chunk > 1:
             self._pending.append((l_u8, r_u8, g, a, d, m, np.float32(t)))
@@ -703,8 +717,7 @@ class FusedSlam:
                 out = self.flush()
         else:
             dev = self.device
-            args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                    for x in (l_u8, r_u8, g, a, d, m)]
+            args = [_upload([x], dev)[0] for x in (l_u8, r_u8, g, a, d, m)]
             self._toc("upload", t0)
             t0 = self._lap_t = self._tic()
             self.map, self.ts, out, flags = _slam_step_core(
@@ -1110,7 +1123,7 @@ class FusedSlam:
         t0 = self._tic()
         batch, self._pending = self._pending, []
         dev = self.device
-        stacked = [torch.from_numpy(np.stack([b[i] for b in batch])).to(dev) for i in range(6)]
+        stacked = [_upload([b[i] for b in batch], dev) for i in range(6)]
         ts_ = [b[6] for b in batch]
         self._toc("upload", t0)
         t0 = self._lap_t = self._tic()

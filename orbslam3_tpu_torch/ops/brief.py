@@ -65,14 +65,32 @@ def orientations_from_patches(patches):
     if key not in _MOMENT_W:
         _MOMENT_W[key] = torch.from_numpy(_moment_weights(S)).to(patches.device)
     flat = patches.reshape(patches.shape[:-2] + (S * S,))
-    if flat.dim() == 3 and flat.shape[0] > 2:
+    if flat.dim() == 3:
         # a matrix product's order of summation depends on its row count, so
-        # a larger batch goes two images (one stereo pair) at a time: every
-        # image then gets the bits it gets in a batch of two
-        m = torch.cat([g @ _MOMENT_W[key] for g in flat.split(2)])
+        # a batch goes two images (one stereo pair) at a time, a lone image
+        # beside a copy of itself: every image then gets the bits it gets in
+        # a batch of two
+        B = flat.shape[0]
+        if B % 2:
+            flat = torch.cat([flat, flat[-1:]])
+        m = torch.cat([g @ _MOMENT_W[key] for g in flat.split(2)])[:B]
     else:
         m = flat @ _MOMENT_W[key]
     return torch.atan2(m[..., 1], m[..., 0])
+
+
+def orientations(img, ys, xs):
+    """Intensity-centroid angle per keypoint of one (H, W) image at
+    integer (N,) ys, xs: atan2(m01, m10), (N,) radians."""
+    patches = gather_patches(img[None], ys[None], xs[None], 2 * ORI_RADIUS + 1)
+    return orientations_from_patches(patches)[0]
+
+
+def descriptors(img, ys, xs, angles):
+    """Steered BRIEF of one (H, W) image (pre-blurred, sigma ~2) at integer
+    (N,) ys, xs with (N,) angles: (N, 32) uint8 packed descriptors."""
+    return descriptors_from_patches(gather_patches(img[None], ys[None], xs[None], GATHER),
+                                    angles[None])[0]
 
 
 def descriptors_from_patches(patches, angles):

@@ -115,6 +115,26 @@ def corner_subpix(img, ys, xs, win: int = 4):
     return dy, dx
 
 
+def subpixel_refine(score, ys, xs):
+    """Quadratic (parabola) sub-pixel peak refinement on one (H, W) score
+    map at integer (N,) peaks: (dy, dx) offsets in [-0.5, 0.5]."""
+    h, w = score.shape
+    y0 = torch.clamp(ys.long(), 1, h - 2)
+    x0 = torch.clamp(xs.long(), 1, w - 2)
+    c = score[y0, x0]
+    left = score[y0, x0 - 1]
+    right = score[y0, x0 + 1]
+    up = score[y0 - 1, x0]
+    down = score[y0 + 1, x0]
+
+    def para(m, c_, p):
+        denom = m - 2.0 * c_ + p
+        safe = torch.where(torch.abs(denom) > 1e-6, denom, torch.full_like(denom, 1e-6))
+        return torch.clamp(0.5 * (m - p) / safe, -0.5, 0.5)
+
+    return para(up, c, down), para(left, c, right)
+
+
 def topk_stable(x, k: int, dim: int = -1):
     """(values, indices) of the k largest along `dim`; equal values keep the
     lower index first (lax.top_k's order)."""

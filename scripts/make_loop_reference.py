@@ -14,7 +14,8 @@ Runs the JAX package's FusedSlam on the CPU, with its loop closer, on:
   reloc    the relocalization world of tests/test_fused_loop.py (384x256,
            8 s at 10 Hz, a 2 s blackout, lost_timeout=30 s, visual only,
            the test's LoopConfig overrides), with the corrected per-frame
-           positions.
+           positions, and the Sim3 RANSAC draws of each of its
+           verifications (data/reloc_draws.npz, below).
 
 For each: LoopStats, one event per correction (frame, service round, query
 and candidate rows and their keyframe times, merge / loop / relocalization,
@@ -27,7 +28,11 @@ and the vocabularies the runs used (data/vocab_bench.npz,
 data/vocab_revisit.npz, data/vocab_reloc.npz, and data/vocab_merge.npz: the
 merge world of tests/test_fused_loop.py, which chip_smoke.py runs), so that
 both packages run the same trees. chip_smoke.py holds the port's runs on the GPU to this
-record.
+record. For the relocalization world it also writes data/reloc_draws.npz: per
+verification in the order the run dispatched them, the query keyframe, the
+candidates, their RANSAC masks (C, N) and the (C, 256, 3) samples JAX drew
+from fold_in(PRNGKey(7), keyframe) (loop/closer.py:419-420), which
+tests/test_torch_fused_reloc.py feeds to the port's LoopCloser.sampler.
 
     JAX_PLATFORMS=cpu python scripts/make_loop_reference.py [bench|revisit|reloc ...]
 
@@ -140,6 +145,58 @@ def instrument(slam):
     cl._correct, cl._global_ba, cl._vi_refine = correct_, gba_, vi_
     mo.fuse_across_seam = fuse_
     return log, events, (lambda: setattr(mo, "fuse_across_seam", fuse))
+
+
+def draw_recorder():
+    """Record every verification's RANSAC masks and draws, by wrapping the
+    JAX closer's _verify_program: the masks are recomputed with the
+    program's own matching (integer and boolean, exact) and the draws with
+    its keys. Returns (records, restore)."""
+    import jax
+    import jax.numpy as jnp
+
+    import orbslam3_tpu.loop.closer as jcl
+
+    program = jcl._verify_program
+    records = []
+
+    @jax.jit
+    def masks(st, kf_id, cands, hamming_max):
+        M = st.mp_pos.shape[0]
+        mp_a = st.kf_mp[kf_id]
+        a_mp_valid = st.mp_valid[jnp.clip(mp_a, 0, M - 1)]
+
+        def one(cand):
+            best_b, best_val, ok = jcl._match_kf_pair(
+                st.kf_desc[kf_id], st.kf_feat_valid[kf_id], mp_a, st.kf_desc[cand],
+                st.kf_feat_valid[cand], st.kf_mp[cand])
+            mp_b = st.kf_mp[cand][best_b]
+            return (ok & (best_val <= hamming_max) & a_mp_valid
+                    & st.mp_valid[jnp.clip(mp_b, 0, M - 1)])
+
+        return jax.vmap(one)(cands)
+
+    def recorded(st, kf_id, cands, cam, hamming_max, chi2, radius):
+        ok = np.asarray(masks(st, kf_id, cands, hamming_max))
+        keys = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(7), kf_id), ok.shape[0])
+        draws = np.stack([np.asarray(jax.random.categorical(k, jnp.where(o, 0.0, -1e9),
+                                                            shape=(256, 3)))
+                          for k, o in zip(keys, ok)]).astype(np.int32)
+        records.append(dict(kf_id=int(kf_id), cands=np.asarray(cands, np.int32), ok=ok,
+                            draws=draws))
+        return program(st, kf_id, cands, cam, hamming_max, chi2, radius)
+
+    jcl._verify_program = recorded
+    return records, (lambda: setattr(jcl, "_verify_program", program))
+
+
+def save_draws(records, name):
+    """The recorded verifications as one npz: kf_id (V,), cands (V, C),
+    ok (V, C, N), draws (V, C, 256, 3)."""
+    path = os.path.join(DATA, f"{name}_draws.npz")
+    np.savez_compressed(path, kf_id=np.asarray([r["kf_id"] for r in records], np.int32),
+                        **{k: np.stack([r[k] for r in records]) for k in ("cands", "ok", "draws")})
+    return os.path.relpath(path, ROOT), os.path.getsize(path)
 
 
 def run(world, times, frames, imu, cfg, vocab, loop_over=None, chunk=8, service_every=8,
@@ -271,12 +328,18 @@ def reloc_runs():
     voc = small_world_vocab(world)
     path, size = save_vocab(voc, "reloc")
     cfg = small_cfg(lost_timeout=30.0, insert_kfs_lost_visual=True)
-    rec, ps, slam = run(world, times, frames, imu, cfg, voc, chunk=1, service_every=2,
-                        warmup=False,
-                        loop_over=dict(recent_gap=3, covis_edge_weight_min=10,
-                                       bow_min_score_gate=False))
+    draws, restore = draw_recorder()
+    try:
+        rec, ps, slam = run(world, times, frames, imu, cfg, voc, chunk=1, service_every=2,
+                            warmup=False,
+                            loop_over=dict(recent_gap=3, covis_edge_weight_min=10,
+                                           bow_min_score_gate=False))
+    finally:
+        restore()
+    dpath, dsize = save_draws(draws, "reloc")
     return {"world": "tests/test_fused_loop.py::test_blackout_relocalizes_same_map",
-            "vocabulary": path, "vocabulary_bytes": size, "n_frames": len(times), **rec, "modes": slam.modes().tolist(),
+            "vocabulary": path, "vocabulary_bytes": size, "draws": dpath, "draws_bytes": dsize,
+            "n_frames": len(times), **rec, "modes": slam.modes().tolist(),
             "p": np.round(ps.astype(np.float64), 6).tolist()}
 
 

@@ -16,6 +16,16 @@ seam within 0.1 m, and the service sequence equal up to the round after
 it (see test_reloc_world_matches_jax for what is not held after it); the
 rule chip_smoke.py holds the card's relocalization-mode rounds to, on both
 runs.
+
+The witness of the later correction (test_reloc_world_fed_matches_jax): the
+same world with every frame's features taken from the JAX front end and
+every verification fed the Sim3 RANSAC draws the recorded JAX run made
+(data/reloc_draws.npz, scripts/make_loop_reference.py reloc) corrects the
+reference's keyframe pairs, 24 against 10 and 33 against 24, and its whole
+service sequence is the reference's. With its own front end the port
+corrects 31 against 25 (test_reloc_world_matches_jax): the front ends
+differ by single descriptor bits, which change the RANSAC masks the draws
+index.
 """
 import importlib.util
 import json
@@ -24,6 +34,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from orbslam3_tpu.io.synthetic import SyntheticConfig, SyntheticWorld
 from orbslam3_tpu_torch.eval.metrics import ate_rmse
@@ -31,6 +42,7 @@ from orbslam3_tpu_torch.loop.vocab import load_npz
 from orbslam3_tpu_torch.models import fused as tfused
 from test_torch_fused_loop import LOOP_OVER, blackout_run, small_cfgs, world_vocab
 from test_torch_loop_closer import jax_draws
+from orbslam3_tpu_torch.interop import from_numpy_tree
 from torch_parity import port_camera, record_loop_services
 
 RELOC_WORLD = dict(width=384, height=256, fx=240.0, fy=240.0, n_landmarks=600, duration=8.0,
@@ -59,6 +71,72 @@ def reloc():
     run = blackout_run(slam, world, BLACKOUT)
     gt_p, _ = world.gt_trajectory()
     return dict(run, log=log, slam=slam, ref=ref, gt=gt_p, world=world)
+
+
+def recorded_draws(path):
+    """A LoopCloser.sampler that returns, for each verification, the draws
+    the recorded JAX run made for the same keyframe (in dispatch order),
+    and JAX's draws over the port's masks for a keyframe it did not
+    verify."""
+    rec = np.load(path)
+    used = set()
+
+    def sampler(kf_id, ok):
+        for v, k in enumerate(rec["kf_id"]):
+            if v not in used and k == kf_id and rec["draws"][v].shape[0] == ok.shape[0]:
+                used.add(v)
+                return torch.from_numpy(rec["draws"][v]).long()
+        return jax_draws(kf_id, ok)
+
+    sampler.used = used
+    return sampler
+
+
+@pytest.fixture(scope="module")
+def reloc_fed():
+    """The port's back end on the JAX front end's features, fed the
+    recorded run's draws."""
+    from orbslam3_tpu.models import fused as jfused
+
+    world = SyntheticWorld(SyntheticConfig(**RELOC_WORLD))
+    jcfg, tcfg = small_cfgs(lost_timeout=30.0, insert_kfs_lost_visual=True)
+    jax_frontend = jax.jit(lambda left, right: jfused._frontend(left, right, world.cam, jcfg))
+
+    def from_jax(left_u8, right_u8, cam, cfg):
+        fe = jax_frontend(left_u8.numpy(), right_u8.numpy())
+        return tuple(from_numpy_tree(jax.tree.map(np.asarray, x)) for x in fe)
+
+    slam = tfused.FusedSlam(port_camera(world.cam), tcfg, device="cpu", service_every=2,
+                            vocabulary=load_npz(os.path.join(DATA, "vocab_reloc.npz")))
+    slam.loop_closer.cfg = slam.loop_closer.cfg._replace(
+        **{k: v for k, v in LOOP_OVER.items() if k != "consistency_needed"})
+    sampler = recorded_draws(os.path.join(DATA, "reloc_draws.npz"))
+    slam.loop_closer.sampler = sampler
+    log = record_loop_services(slam, [])
+    own = tfused._frontend
+    tfused._frontend = from_jax
+    try:
+        run = blackout_run(slam, world, BLACKOUT)
+    finally:
+        tfused._frontend = own
+    with open(REF) as f:
+        ref = json.load(f)["reloc"]
+    return dict(run, log=log, slam=slam, ref=ref, sampler=sampler)
+
+
+def test_reloc_world_fed_matches_jax(reloc_fed):
+    """Fed JAX's features and its recorded draws, the port makes the
+    reference's corrections, 24 against 10 (a relocalization) and 33
+    against 24, with its statistics and its whole service sequence."""
+    slam, ref = reloc_fed["slam"], reloc_fed["ref"]
+    got = [(c["kf_id"], c["cand"], c["reloc"]) for c in slam.loop_closer.corrections]
+    want = [(c["kf_id"], c["cand"], c["reloc"]) for c in ref["corrections"]]
+    assert got == want == [(24, 10, True), (33, 24, False)]
+    assert tuple(slam.loop_closer.stats) == tuple(ref["stats"].values())
+    assert [list(e) for e in reloc_fed["log"]] == ref["services"]
+    # every verification took the recorded draws
+    assert len(reloc_fed["sampler"].used) == len(np.load(
+        os.path.join(DATA, "reloc_draws.npz"))["kf_id"])
 
 
 def test_reloc_vocabulary_file_is_the_tests(reloc):

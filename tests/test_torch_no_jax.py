@@ -5,7 +5,10 @@ stereo configuration and under the stereo-inertial one, then one chunk of
 two frames, one compaction pass and one checkpoint round trip (the machine
 with the card has no JAX); a loop closer built from a vocabulary services
 one keyframe and drains, global BA takes a step, and FusedSlam builds and
-warms up its loop closer."""
+warms up its loop closer; an EuRoC-format fixture is written, loaded
+(images through the native loader, with PIL unimportable where g++ can
+build it) and one stereo pair is rectified; the port's runner scripts
+import no JAX either."""
 import re
 import subprocess
 import sys
@@ -15,9 +18,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "orbslam3_tpu_torch"
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, pkgutil, shutil, sys
 sys.modules["jax"] = None
 sys.modules["orbslam3_tpu"] = None
+if shutil.which("g++"):
+    sys.modules["PIL"] = None
 import orbslam3_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(orbslam3_tpu_torch.__path__, "orbslam3_tpu_torch.")]
 for name in names:
@@ -55,7 +60,8 @@ assert again._n_kf == int(slam.map.n_kf)
 for name in ("optim.vi_ba", "optim.imu_init", "optim.robust_pose", "map.triangulation",
              "map.mapping_ops", "map.compaction", "map.checkpoint", "viz.export",
              "geometry.se3", "geometry.sim3", "loop.sim3", "loop.vocab", "optim.pose_graph",
-             "loop.closer", "parallel.distributed_ba", "utils.logging"):
+             "loop.closer", "parallel.distributed_ba", "utils.logging", "io.euroc",
+             "io.rectify", "io.native", "io.euroc_fixture", "viz.html_view", "viz.live"):
     assert "orbslam3_tpu_torch." + name in names, name
 import numpy as np
 from orbslam3_tpu_torch.loop import vocab as vb
@@ -74,6 +80,18 @@ assert q.shape == st.kf_q.shape
 with_loop = FusedSlam(world.cam, cfg, vocabulary=voc, chunk=2, device="cpu", warmup=True,
                       loop_cfg=LoopConfig(vi_refine_points=512))
 assert with_loop.loop_closer is not None
+import torch
+from orbslam3_tpu_torch.io.euroc import EurocDataset
+from orbslam3_tpu_torch.io.euroc_fixture import write_fixture
+from orbslam3_tpu_torch.io.rectify import remap_u8, stereo_rectify_maps
+with tempfile.TemporaryDirectory() as d:
+    ds = EurocDataset(write_fixture(d, duration=0.2, hz=10.0, scale=0.25))
+    left, right = ds.stereo_pair_u8(1)
+maps = stereo_rectify_maps(ds.cam0.K, ds.cam0.dist, ds.cam0.T_BS, ds.cam1.K, ds.cam1.dist,
+                           ds.cam1.T_BS, ds.cam0.resolution)
+rect = remap_u8(torch.from_numpy(left), torch.from_numpy(maps.map_x0),
+                torch.from_numpy(maps.map_y0))
+assert len(ds) == 2 and rect.shape == left.shape == (120, 188) and rect.float().std() > 1
 assert not any(k == "jax" or k.startswith(("jax.", "orbslam3_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("modules", len(names))
@@ -91,5 +109,6 @@ def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import jax|from jax|import orbslam3_tpu\b(?!_torch)|"
                      r"from orbslam3_tpu(\.|\s))", re.M)
     hits = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
-    hits += [str(ROOT / "chip_smoke.py")] * bool(pat.search((ROOT / "chip_smoke.py").read_text()))
+    for script in [ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("*_torch.py"))]:
+        hits += [str(script)] * bool(pat.search(script.read_text()))
     assert not hits, hits

@@ -108,8 +108,9 @@ Phases (each raises on failure; nothing is caught):
    state: poses and points equal bit for bit to the run's, the second run
    with the device synchronized at each stage's end for the stages' device
    times; the verification of its query against its candidate and the three
-   keyframes before it on the card with fed samples against the CPU (counts
-   exact; the Sim3 and seam of those past the inlier gate within 1e-5); card
+   keyframes sharing the most points with it on the card with fed samples
+   against the CPU (counts exact; the Sim3 and seam of those past the
+   inlier gate within 1e-5); card
    times of the exhaustive detection product and of one global-BA step;
 8. EuRoC ingest, started before 6b and finished before the profiled run:
    the native loader built with
@@ -133,6 +134,27 @@ Phases (each raises on failure; nothing is caught):
    round-trips through DBoW2 text: the JAX test's bars (IMU initialized,
    >= 1 correction, ATE < 0.7 m); frames/s after 8 warm-up frames, the
    stage table and peak memory of each run;
+   (f) distributed global BA on (d)'s recorded input state with the
+   closer's table: `distributed_global_ba` over a one-rank NCCL group in
+   this process equal to `global_ba` bit for bit, then two spawned ranks of
+   a gloo group on CUDA tensors of the one card (NCCL refuses two ranks on
+   one card): the ranks bit-equal and within 1e-4 of one rank; CUDA-event
+   time per Gauss-Newton step beside the all_reduce's bytes;
+9. the fleet (scripts/bench_fleet.py's configuration), in a spawned process
+   beside phases 6b-6f: FLEET_SESSIONS sessions of a MultiSessionSlam on the
+   one card, worlds SyntheticConfig(seed=s, n_landmarks=800) at 752x480 and
+   20 Hz, SlamConfig(use_imu=True, kf_max_frames=6, ba_iters=3,
+   ba_window=6), default capacities, chunk FLEET_CHUNK, FLEET_FRAMES frames a
+   session and half of them for session 0 (a ragged stream). The launch
+   counter set to 0 just before the fleet and read just after must equal
+   the sessions with frames summed over the flushes; sessions 0 and 1 equal
+   a lone FusedSlam(chunk=4, service_every=10**9) on their frames bit for
+   bit; every session has two keyframes or more and a finite trajectory of
+   its true length. Prints the aggregate tracked frames/s after the warm-up
+   flush, per-session frames/s, peak memory and memory per session;
+10. the entry points, in the same process after the fleet: entry() on the
+   card against the CPU (n_inliers exact, q and p within 1e-5), then
+   dryrun_multichip(2) on the card (two gloo ranks, a two-session fleet);
 7. accuracy of the odometry paths against their JAX references over the
    frames they ran (check_accuracy) and of the session (check_session).
 
@@ -182,6 +204,8 @@ RELOC_BLACKOUT = (2.5, 4.5)
 RELOC_LOOP = dict(recent_gap=3, covis_edge_weight_min=10, bow_min_score_gate=False)
 SESSION_FRAMES, SESSION_MAX_KF, SESSION_SEED = 104, 16, 1  # scripts/make_session_reference.py
 LAUNCHES_PER_FRAME = 1  # one fast_nms_levels launch for the whole pyramid
+# scripts/bench_fleet.py: 8 sessions, session 0 with half the frames, chunk 4
+FLEET_SESSIONS, FLEET_FRAMES, FLEET_CHUNK = 8, 24, 4
 KERNEL_NAME = "fast_nms_kernel"
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -843,9 +867,11 @@ def reloc_run(card, ref) -> dict:
 def loop_reproducibility(first, vocab, cfg, cam, card) -> dict:
     """(d) The revisit run's first correction again, twice, on its recorded
     input state on the card: poses and points equal bit for bit to the
-    run's; the verification of its query on the card with fed samples
-    against the CPU (counts exact, the Sim3 and seam of the candidates past
-    the inlier gate within 1e-5); card times of the exhaustive detection
+    run's; the verification of its query (or of the newest keyframe with
+    map points, where the query's row has none) against its candidate and
+    the three keyframes sharing the most points with it, on the card with
+    fed samples against the CPU (counts exact, the Sim3 and seam of the
+    candidates past the inlier gate within 1e-5); card times of the exhaustive detection
     product at the full row count and of one global-BA step."""
     import torch
 
@@ -884,10 +910,18 @@ def loop_reproducibility(first, vocab, cfg, cam, card) -> dict:
         + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
         + f"; global BA {gba_text(recs[1]['gba'])}; {recs[1]['host_reads']} host reads  [{card}]")
 
-    # the correction's candidate and three keyframes just before the query
-    # (they share its points: well-conditioned Sim3s)
+    # the query against the correction's candidate and the three live
+    # keyframes that share the most map points with it (well-conditioned
+    # Sim3s); where the query's row holds no map point in the recorded state,
+    # the newest live keyframe that holds some stands in for it
+    kf_mp, live = first["st"].kf_mp.cpu().numpy(), first["st"].kf_valid.cpu().numpy()
+    pts = [set(r[r >= 0].tolist()) if ok else set() for r, ok in zip(kf_mp, live)]
     kf = first["kf_id"]
-    cands = [first["cand"]] + [max(kf - d, 0) for d in (1, 2, 3)]
+    if not pts[kf]:
+        kf = max(k for k in range(len(pts)) if pts[k])
+    shared = sorted((-len(pts[kf] & pts[k]), k) for k in range(len(pts))
+                    if pts[k] and k not in (kf, first["cand"]))
+    cands = [first["cand"]] + [k for _, k in shared[:3]]
     samples = {}
 
     def fed(m):
@@ -911,7 +945,8 @@ def loop_reproducibility(first, vocab, cfg, cam, card) -> dict:
     # failed one's Sim3, from a handful of inliers, is never used)
     passed = want[1] >= cfg.min_sim3_inliers
     err = max((float((a.cpu() - b)[passed].abs().max())
-               for a, b in zip((got[3], *got[4]), (want[3], *want[4]))), default=float("inf"))
+               for a, b in zip((got[3], *got[4]), (want[3], *want[4]))),
+              default=float("inf")) if bool(passed.any()) else float("inf")
     log(f"verification of keyframe {kf} against {cands} on the card with fed samples: nm "
         f"{got[0].tolist()}, ninl {got[1].tolist()}, nrp {got[2].tolist()} equal to the CPU's; "
         f"the Sim3 and seam of the {int(passed.sum())} past the inlier gate within {err:.1e} of "
@@ -1652,6 +1687,271 @@ def euroc_finish(handle: dict, timeout_s: float = 900.0) -> dict:
     return out
 
 
+def fleet_run(card) -> dict:
+    """Phase 9: scripts/bench_fleet.py's fleet on the card. FLEET_SESSIONS
+    worlds SyntheticConfig(seed=s, n_landmarks=800) at 752x480, 20 Hz,
+    FLEET_FRAMES frames a session and half of them for session 0 (a ragged
+    stream), SlamConfig(use_imu=True, kf_max_frames=6, ba_iters=3,
+    ba_window=6) at the default capacities, chunk 4, every session on the
+    one card. Holds: FAST/NMS launches (counted from 0 just before the run)
+    equal the sum over flushes of the sessions with frames; sessions 0 and 1
+    equal a lone FusedSlam(chunk=4, service_every=10**9) on their frames bit
+    for bit; every session has two keyframes or more and a finite
+    trajectory of its true length."""
+    import numpy as np
+    import torch
+
+    from orbslam3_tpu_torch.io.synthetic import SyntheticConfig, SyntheticWorld
+    from orbslam3_tpu_torch.models.fused import FrameOut, FusedSlam
+    from orbslam3_tpu_torch.models.slam import SlamConfig
+    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms
+    from orbslam3_tpu_torch.parallel.multi_session import MultiSessionSlam
+
+    D, n = FLEET_SESSIONS, FLEET_FRAMES
+    t0 = time.perf_counter()
+    worlds = [SyntheticWorld(SyntheticConfig(duration=n / 20.0, seed=s, n_landmarks=800))
+              for s in range(D)]
+    streams = []
+    for s, w in enumerate(worlds):
+        times = w.frame_times()[: n // 2 if s == 0 else n]
+        frames = w.render_sequence(times, workers=2)
+        imu = [w.imu_window(times[i - 1] if i > 0 else t, t) for i, t in enumerate(times)]
+        streams.append((times, frames, imu))
+    log(f"fleet: {D} worlds of {n} frames (session 0: {n // 2}) {worlds[0].cfg.width}x"
+        f"{worlds[0].cfg.height} rendered in {time.perf_counter() - t0:.1f} s")
+    cfg = SlamConfig(use_imu=True, kf_max_frames=6, ba_iters=3, ba_window=6)
+    dev = torch.device(DEVICE)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    mem = (lambda: torch.cuda.memory_allocated(dev)) if dev.type == "cuda" else (lambda: 0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    m0 = mem()
+    ms = MultiSessionSlam(worlds[0].cam, cfg, n_sessions=D, chunk=FLEET_CHUNK,
+                          devices=None if dev.type == "cuda" else [dev] * D)
+    state_bytes = mem() - m0
+    fast_nms.launches = 0
+    warm = None
+    t_start = time.perf_counter()
+    for i in range(n):
+        for s, (times, frames, imu) in enumerate(streams):
+            if i < len(times):
+                ms.process_frame(s, frames[i][0], frames[i][1], *imu[i], float(times[i]))
+            if warm is None and ms.outs:  # after the first flush: the warm-up
+                sync()
+                warm = (time.perf_counter(), int(sum(v.sum() for _, _, v in ms.outs)))
+    ms.finalize()
+    sync()
+    t_end = time.perf_counter()
+    launches = fast_nms.launches
+    expected = sum(int(v[s].any()) for _, _, v in ms.outs for s in range(D))
+    total = int(sum(v.sum() for _, _, v in ms.outs))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    if launches != LAUNCHES_PER_FRAME * expected or sum(ms.launches) != expected:
+        raise AssertionError(f"fleet: fast_nms launched {launches} times, expected one a session "
+                             f"a flush with frames: {expected} (the fleet counts {ms.launches})")
+    n_kf = [int(ms.session_state(s)[0].n_kf) for s in range(D)]
+    for s, (times, _, _) in enumerate(streams):
+        ts_, ps, qs = ms.trajectory_arrays(s)
+        if len(ps) != len(times) or not (np.isfinite(ps).all() and np.isfinite(qs).all()):
+            raise AssertionError(f"fleet session {s}: {len(ps)} poses for {len(times)} frames, "
+                                 f"finite {np.isfinite(ps).all()}")
+        if n_kf[s] < 2:
+            raise AssertionError(f"fleet session {s}: {n_kf[s]} keyframes")
+    agg = (total - warm[1]) / (t_end - warm[0])
+    per = [len(streams[s][0]) / ms.step_s[s] for s in range(D)]
+    log(f"fleet: {D} sessions on {sorted({str(d) for d in ms.devices})}, {total} frames in "
+        f"{len(ms.outs)} flushes, fast_nms launches {launches} (= sessions with frames summed "
+        f"over the flushes), keyframes {n_kf}  [{card}]")
+    log(f"fleet: aggregate {agg:.3f} tracked frames/s after the warm-up flush ({warm[1]} frames), "
+        f"{total / (t_end - t_start):.3f} over the whole run; per session (frames over its own "
+        f"step wall) {[round(x, 3) for x in per]} frames/s  [{card}]")
+    log(f"fleet: peak device memory {peak / 2**20:.1f} MiB ({peak / 2**20 / D:.1f} MiB a "
+        f"session), the sessions' state {state_bytes / 2**20:.1f} MiB ({state_bytes / 2**20 / D:.1f}"
+        f" MiB a session)  [{card}]")
+    equal = []
+    for s in (0, 1):
+        times, frames, imu = streams[s]
+        lone = FusedSlam(worlds[s].cam, cfg, chunk=FLEET_CHUNK, service_every=10**9, device=dev)
+        for i, t in enumerate(times):
+            lone.process_frame(frames[i][0], frames[i][1], *imu[i], float(t))
+        lone.flush()
+        a, b = ms.frame_outputs(s), lone.frame_outputs()
+        same = all(np.array_equal(getattr(a, f), getattr(b, f)) for f in FrameOut._fields)
+        same = same and all(torch.equal(x, y) for x, y in zip(ms.session_state(s)[0], lone.map)
+                            if isinstance(x, torch.Tensor))
+        equal.append(same)
+        if not same:
+            raise AssertionError(f"fleet session {s} differs from a lone FusedSlam on its frames")
+    log(f"fleet: sessions 0 and 1 equal a lone FusedSlam(chunk={FLEET_CHUNK}, "
+        f"service_every=10**9) on their frames bit for bit (outputs and map): {equal}  [{card}]")
+    return dict(sessions=D, frames=total, flushes=len(ms.outs), launches=launches,
+                aggregate_fps=agg, whole_run_fps=total / (t_end - t_start),
+                per_session_fps=per, peak_mib=peak / 2**20, state_mib=state_bytes / 2**20,
+                n_kf=n_kf, host_syncs=ms.host_syncs)
+
+
+def fleet_worker(card: str, log_path: str, out_path: str, settings: dict):
+    """Phases 9 and 10 in a spawned process (the fleet, then the entry
+    points): its log to log_path, its record or the error to out_path as
+    JSON."""
+    import traceback
+
+    globals().update(settings)
+    sys.stdout = open(log_path, "w", buffering=1)
+    try:
+        out = fleet_run(card)
+        phase("10 the entry points: entry() against the CPU, dryrun_multichip(2)")
+        out["entry"] = entry_phase(card)
+    except BaseException:
+        out = {"error": traceback.format_exc()}
+    with open(out_path, "w") as f:
+        json.dump(out, f, default=str)
+
+
+def fleet_start(card: str) -> dict:
+    """Start phases 9 and 10 in a spawned process beside whatever this
+    process runs next; `fleet_finish` waits for them."""
+    import multiprocessing
+    import tempfile
+
+    d = tempfile.TemporaryDirectory()
+    paths = [os.path.join(d.name, f"fleet.{x}") for x in ("log", "json")]
+    p = multiprocessing.get_context("spawn").Process(
+        target=fleet_worker, args=(card, *paths,
+                                   dict(DEVICE=DEVICE, LAUNCHES_PER_FRAME=LAUNCHES_PER_FRAME)))
+    p.start()
+    return dict(proc=p, paths=paths, dir=d, t0=time.perf_counter())
+
+
+def fleet_finish(handle: dict, timeout_s: float = 600.0) -> dict:
+    """Wait for phases 9 and 10, print their log, raise if one failed a
+    hold."""
+    t0 = time.perf_counter()
+    p, (log_path, out_path) = handle["proc"], handle["paths"]
+    try:
+        p.join(timeout_s)
+        if p.is_alive():
+            raise AssertionError(f"fleet: still running after {timeout_s:.0f} s")
+        with open(log_path) as f:
+            for line in f:
+                log(f"[fleet] {line.rstrip()}")
+        if not os.path.exists(out_path):
+            raise AssertionError(f"fleet: exited with code {p.exitcode} and no record")
+        with open(out_path) as f:
+            rec = json.load(f)
+    finally:
+        if p.is_alive():
+            p.terminate()
+            p.join(10)
+        handle["dir"].cleanup()
+    log(f"fleet: done {time.perf_counter() - handle['t0']:.1f} s after it started (waited "
+        f"{time.perf_counter() - t0:.1f} s for it here)")
+    if "error" in rec:
+        raise AssertionError("fleet failed:\n" + rec["error"])
+    return rec
+
+
+def distributed_gba_phase(first, cfg, cam, card) -> dict:
+    """Phase 6f: distributed global BA on the card, on the recorded input
+    state of the revisit world's first correction, with the closer's table
+    (gba_max_points, gba_tile, gba_obs, gba_iters). One rank of an NCCL group
+    in this process against global_ba, bit for bit; then two spawned ranks
+    of a gloo group on CUDA tensors of the one card: the ranks bit-equal and
+    within 1e-4 of the one rank. CUDA-event times per Gauss-Newton step
+    beside the bytes the all_reduce sums."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from orbslam3_tpu_torch.interop import to_device
+    from orbslam3_tpu_torch.parallel.distributed_ba import (
+        distributed_global_ba,
+        global_ba,
+        make_point_table,
+    )
+    from orbslam3_tpu_torch.parallel.ranks import free_port, gba_rank, run_ranks
+
+    dev = torch.device("cuda")
+    st = to_device(first["st"], dev)
+    K = st.kf_valid.shape[0]
+    P = -(-min(cfg.gba_max_points, st.mp_pos.shape[0]) // cfg.gba_tile) * cfg.gba_tile
+    pts, _ = make_point_table(st, P, cfg.gba_obs)
+    opt = st.kf_valid & (torch.arange(K, device=dev) != first["cand"])
+    it, tile = cfg.gba_iters, cfg.gba_tile
+    args = (pts, st.kf_q, st.kf_p, opt, cam)
+    one = global_ba(*args, iters=it, tile=tile)
+    one_ms = cuda_ms(lambda: global_ba(*args, iters=it, tile=tile), 2) / it
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        nccl = distributed_global_ba(*args, iters=it, tile=tile)
+        nccl_ms = cuda_ms(lambda: distributed_global_ba(*args, iters=it, tile=tile), 2) / it
+    finally:
+        dist.destroy_process_group()
+    same = [torch.equal(a, b) for a, b in zip(nccl, one)]
+    bytes_ = (36 * K * K + 6 * K) * 4
+    n_pts = int(pts.pt_valid.sum())
+    log(f"distributed global BA, one NCCL rank against global_ba on the revisit world's first "
+        f"correction ({n_pts} points in a table of {P} slots, tiles of {tile}, {K} keyframes, "
+        f"{it} iterations): q, p, Xw equal bit for bit {same}; per Gauss-Newton step "
+        f"{nccl_ms:.1f} ms (global_ba {one_ms:.1f} ms), all_reduce of {bytes_} bytes "
+        f"(6K x 6K + 6K floats) a step  [{card}]")
+    if not all(same):
+        raise AssertionError("distributed_global_ba on one NCCL rank differs from global_ba")
+    problem = {f: getattr(pts, f).cpu().numpy() for f in pts._fields}
+    problem.update(q=st.kf_q.cpu().numpy(), p=st.kf_p.cpu().numpy(), opt_cam=opt.cpu().numpy(),
+                   cam=cam.to("cpu"))
+    t0 = time.perf_counter()
+    outs = run_ranks(gba_rank, 2, (problem, it, tile, "cuda", 2), backend="gloo")
+    wall = time.perf_counter() - t0
+    for k in ("q", "p", "Xw"):
+        if not np.array_equal(outs[0][k], outs[1][k]):
+            raise AssertionError(f"distributed global BA: the two gloo ranks' {k} differ")
+    err = max(float(np.abs(outs[0][k] - a.cpu().numpy()).max())
+              for k, a in zip(("q", "p", "Xw"), one))
+    two_ms = [o["ms"][-1] / it for o in outs]
+    log(f"distributed global BA, two gloo ranks on CUDA tensors of the one card (spawned, "
+        f"{wall:.1f} s with start-up): ranks equal bit for bit, {err:.2e} from one rank; per "
+        f"Gauss-Newton step {[round(x, 1) for x in two_ms]} ms (ranks 0, 1), all_reduce of "
+        f"{bytes_} bytes a step through the host  [{card}]")
+    if err > 1e-4:
+        raise AssertionError(f"distributed global BA: two ranks leave one rank by {err}")
+    return dict(points=n_pts, slots=P, tile=tile, keyframes=K, iters=it,
+                one_rank_nccl_step_ms=nccl_ms, global_ba_step_ms=one_ms,
+                two_rank_gloo_step_ms=two_ms, allreduce_bytes=bytes_, two_rank_max_err=err)
+
+
+def entry_phase(card) -> dict:
+    """Phase 10: entry() on the card against the CPU (n_inliers exact, q and
+    p within 1e-5), then dryrun_multichip(2) on the card."""
+    import numpy as np
+    import torch
+
+    from orbslam3_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry()
+    if args[1].device.type != "cuda":
+        raise AssertionError("entry() did not pick the card")
+    got = [x.cpu().numpy() for x in fn(*args)]
+    fn_c, args_c = entry(device="cpu")
+    want = [x.numpy() for x in fn_c(*args_c)]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got[:2], want[:2]))
+    log(f"entry(): q, p within {err:.1e} of the CPU's, n_inliers {int(got[2])} (CPU "
+        f"{int(want[2])})  [{card}]")
+    if err > 1e-5 or int(got[2]) != int(want[2]):
+        raise AssertionError("entry() on the card leaves the CPU's result")
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    wall = time.perf_counter() - t0
+    log(f"dryrun_multichip(2) on the card in {wall:.1f} s  [{card}]")
+    torch.cuda.synchronize()
+    return dict(entry_err=err, n_inliers=int(got[2]), dryrun_s=wall)
+
+
 def run_slice(world, times, frames, imu, cfg, device=None, profile_at=None, chunk=1,
               slam=None, start=0, stop=None, finalize=True, hook=None):
     """FusedSlam.process_frame over frames [start, stop), on the device
@@ -2078,6 +2378,9 @@ def main() -> int:
           "beside phases 6b-6d")
     with open(os.path.join(data, "euroc_reference.json")) as f:
         euroc_handle = euroc_start(fixtures, json.load(f), card)
+    phase("9 the fleet, then 10 the entry points, started in a spawned process beside phases "
+          "6b-6f")
+    fleet_handle = fleet_start(card)
 
     phase(f"6b loop closing: the revisit world ({REVISIT_FRAMES} frames)")
     rv, rv_rec, rv_first, launches_revisit = revisit_run(card, ref_loop["revisit"],
@@ -2090,10 +2393,15 @@ def main() -> int:
     reloc = reloc_run(card, ref_loop["reloc"])
     phase("6d loop closing: the first correction again, its verification against the CPU")
     hot = loop_reproducibility(rv_first, load_vocab("revisit"), rv_cfg, rv_cam, card)
+    phase("6f distributed global BA: one NCCL rank, two gloo ranks on the card")
+    dgba = distributed_gba_phase(rv_first, rv_cfg, rv_cam, card)
     del rv_first
 
     phase("8 EuRoC ingest: the runs' results")
     euroc = euroc_finish(euroc_handle)
+    phase("9, 10 the fleet and the entry points: their results")
+    fleet = fleet_finish(fleet_handle)
+    entries = fleet.pop("entry")
 
     phase("5d the main run resumed from its checkpoint, with the profiler window (last)")
     us_frame = resume_and_profile(world, *main_frames, vi, ckpt, saved, card)
@@ -2123,7 +2431,8 @@ def main() -> int:
                              "euroc_full_width": euroc["full"]["launches"],
                              "euroc_loop_jax_vocab": euroc["loop_jax_vocab"]["launches"],
                              "euroc_loop_own_vocab": euroc["loop_own_vocab"]["launches"],
-                             "detect_orb_vocab_training": euroc["vocab_training"]["launches"]},
+                             "detect_orb_vocab_training": euroc["vocab_training"]["launches"],
+                             "fleet": fleet["launches"]},
         "chunk8": {**kern16, "frames_per_s": fps_chunk, "chunk1_frames_per_s": fps},
         "loop": {"bench_warmup_s": warm_a, "revisit": {k: v for k, v in rv_rec.items()
                                                         if k != "corrections"},
@@ -2132,6 +2441,8 @@ def main() -> int:
             k: {f: euroc[k][f] for f in ("fps", "wall_s", "ate", "ate_raw", "ok_frac",
                                          "imu_init_frame", "keyframes", "peak_mib")}
             for k in ("full", "loop_jax_vocab", "loop_own_vocab")}},
+        "fleet": {k: v for k, v in fleet.items() if k != "launches"},
+        "distributed_gba": dgba, "entry": entries,
         "library_ms": None, "profile_ms": us_frame / 1e3,
         "earlier_ms_is": "8 one-level launches of this kernel, the call pattern before the "
                          "levels were fused, timed in this run",

@@ -10,7 +10,8 @@ numbers pass through. A JAX state turned into numpy
 (`jax.tree.map(np.asarray, state)`) goes through `from_numpy_tree`
 unchanged, which is how the parity tests start both packages from the
 same map. `carry_loop_closer` copies a loop closer's host and device state
-into the port's.
+into the port's; `carry_multi_session` turns a JAX fleet's stacked state
+into the port's per-session pairs.
 """
 from __future__ import annotations
 
@@ -96,3 +97,21 @@ def carry_loop_closer(src, dst, device=None):
     dst.gravity_w = tensor(src.gravity_w, torch.float32)
     dst.stats = type(dst.stats)(*[int(x) for x in src.stats])
     return dst
+
+
+def _slice_tree(nt, i: int):
+    """Leaf [i] of every array of a (nested) tuple; Python values pass."""
+    if isinstance(nt, tuple):
+        out = [_slice_tree(v, i) for v in nt]
+        return type(nt)(*out) if _is_namedtuple(nt) else tuple(out)
+    return nt[i] if isinstance(nt, np.ndarray) else nt
+
+
+def carry_multi_session(state_np, devices) -> list:
+    """A JAX MultiSessionSlam's (maps, tss) — every leaf stacked over a
+    leading session axis of D, as numpy (`jax.tree.map(np.asarray, (ms.maps,
+    ms.tss))`) — as the port's D (MapState, TrackState) pairs, session s on
+    devices[s]: what a port MultiSessionSlam keeps in `maps` and `tss`."""
+    maps, tss = state_np
+    return [(from_numpy_tree(_slice_tree(maps, s), dev), from_numpy_tree(_slice_tree(tss, s), dev))
+            for s, dev in enumerate(devices)]

@@ -879,25 +879,40 @@ class LoopCloser:
                            mp_pos=mp_pos), True
 
     def _global_ba(self, st: MapState, anchor_kf: int, cam: Camera):
-        """Whole-map BA after a correction, on the map's device. The table
-        holds the smaller of the budget and the map's capacity, in tiles of
-        at most gba_tile points. Returns (MapState, record): the table's
-        slots, tiles and iterations, and the points it holds (a device
-        scalar: the correction reads nothing for it)."""
-        from orbslam3_tpu_torch.parallel.distributed_ba import global_ba, make_point_table
+        """Whole-map BA after a correction. The table holds the smaller of
+        the budget and the map's capacity. With a torch.distributed default
+        group of W > 1 ranks (every rank running this closer on the same
+        map) the points are split over the ranks (`distributed_global_ba`),
+        the table padded to a multiple of W tiles of at most gba_tile points
+        as the JAX package sizes it for W devices; otherwise the solve runs
+        on the map's device (`global_ba`, the JAX sizing at one device).
+        Returns (MapState, record): the table's slots, tiles and iterations,
+        the ranks, and the points it holds (a device scalar: the correction
+        reads nothing for it)."""
+        import torch.distributed as dist
+
+        from orbslam3_tpu_torch.parallel.distributed_ba import (
+            distributed_global_ba,
+            global_ba,
+            make_point_table,
+        )
 
         cfg = self.cfg
+        n_dev = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
         M = st.mp_pos.shape[0]
         want = max(min(cfg.gba_max_points, M), 1)
-        tile = max(min(cfg.gba_tile, want), 1)
-        P = -(-want // tile) * tile
+        tile = max(min(cfg.gba_tile, -(-want // n_dev)), 1)
+        unit = n_dev * tile
+        P = -(-want // unit) * unit
         pts, ids = make_point_table(st, P, cfg.gba_obs)
         K = st.kf_valid.shape[0]
         opt = st.kf_valid & (torch.arange(K, device=st.kf_q.device) != anchor_kf)
-        q, p, Xw = global_ba(pts, st.kf_q, st.kf_p, opt, cam, iters=cfg.gba_iters, tile=tile)
+        solve = distributed_global_ba if n_dev > 1 else global_ba
+        q, p, Xw = solve(pts, st.kf_q, st.kf_p, opt, cam, iters=cfg.gba_iters, tile=tile)
         mp_pos = scatter_set(st.mp_pos, ids, Xw, valid=ids >= 0)
         # body-frame velocities under the refined orientations
         dq = quat.normalize(quat.mul(q, quat.conj(st.kf_q)))
         kf_v = torch.where(opt[:, None], quat.rotate(dq, st.kf_v), st.kf_v)
         return (st._replace(kf_q=q, kf_p=p, kf_v=kf_v, mp_pos=mp_pos),
-                dict(slots=P, tiles=P // tile, iters=cfg.gba_iters, points=pts.pt_valid.sum()))
+                dict(slots=P, tiles=P // tile, iters=cfg.gba_iters, ranks=n_dev,
+                     points=pts.pt_valid.sum()))

@@ -138,6 +138,34 @@ def train_vocabulary(descriptors: np.ndarray, k: int = 10, levels: int = 3,
     return Vocabulary(tuple(level_desc), torch.from_numpy(idf), k, levels, valid)
 
 
+def world_vocab_corpus(frames, device=None):
+    """The corpus of `train_world_vocab`: the valid ORB descriptors
+    (default OrbConfig) of every len(frames) // 16-th left image, and the
+    index of the image each came from. Returns numpy (descriptors (N, 32)
+    uint8, doc_ids (N,))."""
+    from orbslam3_tpu_torch import default_device
+    from orbslam3_tpu_torch.frontend.orb import OrbConfig, detect_orb
+
+    dev = default_device(device)
+    descs, doc = [], []
+    oc = OrbConfig()
+    for di, i in enumerate(range(0, len(frames), max(len(frames) // 16, 1))):
+        img = torch.from_numpy(np.asarray(frames[i][0]).astype(np.float32)).to(dev)
+        f = detect_orb(img, oc)
+        d = f.desc[f.valid].cpu().numpy()
+        descs.append(d)
+        doc.append(np.full(len(d), di))
+    return np.concatenate(descs), np.concatenate(doc)
+
+
+def train_world_vocab(world, frames, device=None) -> Vocabulary:
+    """A small BoW vocabulary trained on a sequence's own ORB descriptors
+    (bench.py::train_world_vocab): k=10, L=4 (10k leaves) with per-image
+    idf. The features run on `device` (the card by default); `world` is
+    not read (the JAX signature)."""
+    corpus, doc_ids = world_vocab_corpus(frames, device)
+    return train_vocabulary(corpus, k=10, levels=4, doc_ids=doc_ids)
+
 
 # -------------------------------------------------------------- runtime
 _POPCOUNT = np.array([bin(i).count("1") for i in range(256)], np.uint8)

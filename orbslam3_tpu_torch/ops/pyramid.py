@@ -6,13 +6,14 @@ XLA:CPU numbers as closely as float32 allows:
 * `resize_bilinear` is `jax.image.resize(..., "bilinear")`: when it shrinks,
   a triangle kernel widened by the scale, half-pixel centres, normalised
   weights. The weight matrices are built in numpy the way XLA evaluates
-  `jax.image.scale_and_translate` inside a jitted program (the sample
-  position as one fused multiply-add, the division by the kernel scale as a
-  multiply by its float32 reciprocal, column sums in runs of 32 rows), and
-  are applied rows first, then columns, each output as a fused
-  multiply-add chain over its (at most four) taps in input order — the
-  order XLA's matrix product takes. A fused multiply-add is emulated by
-  forming the product and the sum in float64 and rounding once.
+  `jax.image.scale_and_translate` inside a jitted program (see
+  `_resize_weights_np`: which columns take a fused multiply-add where, and
+  the padded runs of 32 rows the column sums add), and are applied rows
+  first, then columns, each output as a fused multiply-add chain over its
+  (at most four) taps in input order. A fused multiply-add is emulated by
+  forming the product and the sum in float64 and rounding once. (XLA's
+  runtime matrix product sums the taps in an order of its own at some
+  shapes, so levels past the first still differ in part of their pixels.)
 * `blur` is the JAX package's zero-padded separable 7-tap convolution,
   written as seven shifted multiply-adds (the same chain), so no cuDNN
   convolution (and no TF32) is involved.
@@ -62,28 +63,67 @@ def blur(img, sigma=2.0, radius=3):
 _TAPS: dict = {}
 
 
+def _fma_np(a, b, c):
+    """float32 fused multiply-add: product and sum in float64, one rounding."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _resize_weights_np(m: int, n: int):
+    """(m, n) float32 weights of a length-m -> length-n antialiased triangle
+    resample, bit for bit as XLA:CPU's compiled `jax.image.resize` builds
+    them (jaxlib 0.9, x86-64 with FMA).
+
+    XLA builds the matrix in two loop fusions, and LLVM compiles each output
+    column one of two ways. Where the column loop runs at run time, the
+    sample position is one fused multiply-add and the weight is
+    `1 - round(|s - i| * rk)`; where LLVM unrolled the loop and folded the
+    sample position to a constant (two roundings), the weight is one fused
+    multiply-add `1 - |s - i| * rk`. The fusion that sums the weights runs
+    columns in blocks of 32 and is unrolled whole when it has at most 10
+    such blocks; a tail past the last block is folded. The fusion that
+    divides by the sum runs blocks of 16, is unrolled whole at up to 5
+    blocks, and folds the last n % 8 columns. The column sums add runs of 32
+    rows in order, the runs placed over the rows padded by half the padding
+    to a multiple of 32 on each side, then the runs in order."""
+    f32 = np.float32
+    inv = f32(1.0 / (n / m))
+    rk = f32(1.0) / np.maximum(inv, f32(1.0))
+    ar = np.arange(n, dtype=f32) + f32(0.5)
+    s_run = _fma_np(ar, inv, f32(-0.5))
+    s_fold = (ar * inv).astype(f32) + f32(-0.5)
+    rows = np.arange(m, dtype=f32)[:, None]
+
+    def w_run(s):
+        return np.maximum(f32(1.0) - np.abs(s[None, :] - rows) * rk, f32(0.0))
+
+    def w_fold(s):
+        return np.maximum(_fma_np(-np.abs(s[None, :] - rows), rk, f32(1.0)), f32(0.0))
+
+    j = np.arange(n)
+    run_sum = j < (32 * (n // 32) if n // 32 > 10 else 0)
+    run_div = j < (8 * (n // 8) if n // 16 > 5 else 0)
+    w_sum = np.where(run_sum[None, :], w_run(s_run), w_fold(s_fold))
+    sample = np.where(run_div, s_run, s_fold)
+    wts = np.where(run_div[None, :], w_run(s_run), w_fold(s_fold))
+    groups = -(-m // 32)
+    lo = (32 * groups - m) // 2
+    total = np.zeros(n, f32)
+    for g in range(groups):
+        part = np.zeros(n, f32)
+        for i in range(max(32 * g - lo, 0), min(32 * g + 32 - lo, m)):
+            part = part + w_sum[i]
+        total = total + part
+    safe = np.where(total != 0, total, f32(1.0))
+    wts = np.where(np.abs(total)[None] > f32(1000.0 * np.finfo(np.float32).eps),
+                   wts / safe[None], f32(0.0))
+    inside = (sample >= -0.5) & (sample <= f32(m - 0.5))
+    return np.where(inside[None, :], wts, f32(0.0)).astype(f32)
+
+
 def _resize_taps_np(m: int, n: int):
     """(n, T) input indices and float32 weights of a length-m -> length-n
     antialiased triangle resample, zero-padded to T taps per output."""
-    inv = np.float32(1.0 / (n / m))
-    kscale = np.maximum(inv, np.float32(1.0))
-    rk = np.float32(1.0) / kscale
-    ar = np.arange(n, dtype=np.float32) + np.float32(0.5)
-    sample = (ar.astype(np.float64) * np.float64(inv) - 0.5).astype(np.float32)
-    x = np.abs(np.abs(sample[None, :] - np.arange(m, dtype=np.float32)[:, None]) * rk)
-    wts = np.maximum(np.float32(1.0) - x, np.float32(0.0)).astype(np.float32)
-    groups = -(-m // 32)
-    total = np.zeros(n, np.float32)
-    for g in range(groups):
-        part = np.zeros(n, np.float32)
-        for i in range(32 * g, min(32 * g + 32, m)):
-            part = part + wts[i]
-        total = total + part
-    safe = np.where(total != 0, total, np.float32(1.0))
-    wts = np.where(np.abs(total)[None] > np.float32(1000.0 * np.finfo(np.float32).eps),
-                   wts / safe[None], np.float32(0.0))
-    inside = (sample >= -0.5) & (sample <= np.float32(m - 0.5))
-    wts = np.where(inside[None, :], wts, np.float32(0.0)).astype(np.float32)
+    wts = _resize_weights_np(m, n)
     nz = [np.nonzero(wts[:, j])[0] for j in range(n)]
     T = max(max((len(z) for z in nz), default=1), 1)
     idx = np.zeros((n, T), np.int64)

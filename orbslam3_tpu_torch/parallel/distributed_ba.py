@@ -1,12 +1,15 @@
-"""Whole-map (global) bundle adjustment on one device.
+"""Whole-map (global) bundle adjustment, on one device or over the ranks
+of a torch.distributed process group.
 
-Port of orbslam3_tpu/parallel/distributed_ba.py for a single device: the
-point-major observation table (`make_point_table`) and the Gauss-Newton
-solve with the camera system reduced over the points by a Schur complement
-(`global_ba`). The JAX package shards the points over a mesh and sums the
-camera system with a psum; here the points are cut into tiles of `tile`
-points and the tiles' camera systems are summed in turn, which is the same
-sum (the Schur complement is additive over points).
+Port of orbslam3_tpu/parallel/distributed_ba.py: the point-major
+observation table (`make_point_table`) and the Gauss-Newton solve with the
+camera system reduced over the points by a Schur complement. The points
+are cut into tiles of `tile` points and the tiles' camera systems are
+summed in turn, which is the same sum (the Schur complement is additive
+over points). `global_ba` runs every tile on one device;
+`distributed_global_ba` gives each rank a contiguous slice of the points,
+as the JAX package's mesh axis does, and sums the ranks' systems with one
+all_reduce a step where the JAX package has its psum.
 
 Every sum runs in an order that is the same from run to run, and none
 through atomic adds: the camera blocks are one-hot matrix products (each
@@ -130,6 +133,58 @@ def global_ba(pts: GlobalBAPoints, q, p, opt_cam, cam: Camera, iters: int = 10,
     (0 = one tile); it must divide the table's P. Each step is accepted only
     if it lowers the robust cost, with the damping halved on acceptance and
     quadrupled on rejection. Returns (q, p, Xw)."""
+    return _gauss_newton(pts, q, p, opt_cam, cam, iters, damping, tile,
+                         lambda Sb: Sb, lambda c: c)
+
+
+def distributed_global_ba(pts: GlobalBAPoints, q, p, opt_cam, cam: Camera, iters: int = 10,
+                          damping: float = 1e-4, tile: int = 0, group=None):
+    """`global_ba` with the points split over the ranks of a torch.distributed
+    process group (`group`, the default group when None), as the JAX package
+    shards them over a mesh axis.
+
+    Every rank passes the whole table and the same poses; rank r of W takes
+    the contiguous slice of points P/W*r : P/W*(r+1) and builds its tiles'
+    part of the camera system. One all_reduce (sum) of the system (S and b
+    in one buffer, 6K*6K + 6K floats) a Gauss-Newton step and one of the
+    scalar cost a cost evaluation make every rank solve the same system and
+    take the same cost-guarded decision. P must divide by W * tile (tile 0:
+    one tile a rank). Returns (q, p, Xw) with the whole Xw, gathered from
+    every rank's slice. On one rank the result is `global_ba`'s, bit for bit.
+
+    NCCL needs one card a rank; gloo takes CPU tensors and CUDA tensors
+    (two gloo ranks can share one card). Raises when no process group is
+    initialized: there is no fallback to `global_ba`."""
+    import torch.distributed as dist
+
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError("distributed_global_ba needs an initialized torch.distributed "
+                           "process group (global_ba runs the same solve on one device)")
+    W = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    P_ = pts.obs_kf.shape[0]
+    per = P_ // W
+    if per * W != P_ or (tile > 0 and per % tile):
+        raise ValueError(f"{P_} points do not split into {W} ranks of whole tiles of {tile}")
+    local = GlobalBAPoints(*[a[r * per:(r + 1) * per] for a in pts])
+
+    def all_sum(x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x
+
+    q, p, Xw = _gauss_newton(local, q, p, opt_cam, cam, iters, damping, tile, all_sum, all_sum)
+    parts = [torch.empty_like(Xw) for _ in range(W)]
+    dist.all_gather(parts, Xw.contiguous(), group=group)
+    return q, p, torch.cat(parts)
+
+
+def _gauss_newton(pts: GlobalBAPoints, q, p, opt_cam, cam: Camera, iters: int, damping: float,
+                  tile: int, reduce_system, reduce_cost):
+    """The solve of `global_ba` on this process's points. `reduce_system`
+    maps this process's part of the camera system (S and b flattened into
+    one buffer) to the whole system's, and `reduce_cost` its part of a cost
+    to the whole cost: the identity on one device, a sum over the ranks in
+    `distributed_global_ba`."""
     K = q.shape[0]
     P_, O = pts.obs_kf.shape
     T = tile if 0 < tile < P_ else P_
@@ -153,6 +208,9 @@ def global_ba(pts: GlobalBAPoints, q, p, opt_cam, cam: Camera, iters: int = 10,
     all_edges = _edges(pts)
 
     def cost_fn(q, p, Xw):
+        return reduce_cost(local_cost(q, p, Xw))
+
+    def local_cost(q, p, Xw):
         e_kf, e_valid, e_pt, e_uv, e_ur, e_oct = all_edges
         r = res_v(q[e_kf], p[e_kf], Xw[e_pt], e_uv, e_ur)
         chi2 = torch.sum(r * r, -1) * robust.octave_sigma2_inv(e_oct)
@@ -214,6 +272,8 @@ def global_ba(pts: GlobalBAPoints, q, p, opt_cam, cam: Camera, iters: int = 10,
             S = S + S_t
             b = b + b_t
             keep.append(kept)
+        Sb = reduce_system(torch.cat([S.reshape(-1), b]))
+        S, b = Sb[:36 * K * K].reshape(6 * K, 6 * K), Sb[36 * K * K:]
         S = S * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
         # diagonal-relative damping (LM): rank-deficient camera blocks have
         # large diagonals, where an absolute floor is invisible in float32

@@ -65,6 +65,30 @@ def test_unported_options_are_refused_before_the_device_is_picked(world, monkeyp
     assert FusedSlam(world.cam, TINY_CFG, loop_cfg=cfg, device="cpu").loop_closer is None
 
 
+def test_fleet_without_devices_raises_without_a_card(world, monkeypatch):
+    from orbslam3_tpu_torch.parallel.multi_session import MultiSessionSlam
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+        MultiSessionSlam(world.cam, TINY_CFG, n_sessions=2)
+    ms = MultiSessionSlam(world.cam, TINY_CFG, n_sessions=2, devices=["cpu", "cpu"])
+    assert [d.type for d in ms.devices] == ["cpu", "cpu"]
+    with pytest.raises(ValueError, match="2 sessions need 2 devices"):
+        MultiSessionSlam(world.cam, TINY_CFG, n_sessions=2, devices=["cpu"])
+
+
+def test_entry_points_pick_the_card(monkeypatch):
+    from orbslam3_tpu_torch.entry import dryrun_multichip, entry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun_multichip(2)
+    fn, args = entry(device="cpu")
+    assert args[1].device.type == "cpu"
+
+
 def test_bench_signature_constructs(world):
     """The keywords bench.py::run_pipeline passes without a vocabulary."""
     slam = FusedSlam(world.cam, TINY_CFG, service_every=8, chunk=8, vocabulary=None,

@@ -2,12 +2,13 @@
 HARD_WORLD frame at 384x256 with 4 pyramid levels.
 
 Level 0 is the integer image, so its FAST responses match exactly. The
-higher levels are not bit-identical: jax.image.resize computes its weights
-inside the jitted program, and XLA:CPU's fused code rounds some sample
-positions half an ulp differently from any formula the port can write
-down, so a few weight columns differ and levels deviate by up to ~1e-3 on
-the 0..255 scale. Responses on levels >= 1 are therefore compared to 1e-2;
-every keypoint position, octave and validity still matches."""
+higher levels are not bit-identical. The resize weights are
+(test_torch_pyramid_weights.py), but XLA:CPU's runtime matrix product sums
+an output's taps in an order of its own choosing for each shape, which the
+port's fused multiply-add chain in tap order does not follow, so levels
+deviate by up to ~1e-3 on the 0..255 scale. Responses on levels >= 1 are
+therefore compared to 1e-2; every keypoint position, octave and validity
+still matches."""
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,11 +4,12 @@ among them) and one small frame runs through FusedSlam on the CPU under the
 stereo configuration and under the stereo-inertial one, then one chunk of
 two frames, one compaction pass and one checkpoint round trip (the machine
 with the card has no JAX); a loop closer built from a vocabulary services
-one keyframe and drains, global BA takes a step, and FusedSlam builds and
-warms up its loop closer; an EuRoC-format fixture is written, loaded
-(images through the native loader, with PIL unimportable where g++ can
-build it) and one stereo pair is rectified; the port's runner scripts
-import no JAX either."""
+one keyframe and drains, global BA takes a step (and the same step over a
+one-rank gloo group), FusedSlam builds and warms up its loop closer, a
+two-session fleet flushes and entry() runs; an EuRoC-format fixture is
+written, loaded (images through the native loader, with PIL unimportable
+where g++ can build it) and one stereo pair is rectified; the port's
+runner scripts import no JAX either."""
 import re
 import subprocess
 import sys
@@ -61,7 +62,8 @@ for name in ("optim.vi_ba", "optim.imu_init", "optim.robust_pose", "map.triangul
              "map.mapping_ops", "map.compaction", "map.checkpoint", "viz.export",
              "geometry.se3", "geometry.sim3", "loop.sim3", "loop.vocab", "optim.pose_graph",
              "loop.closer", "parallel.distributed_ba", "utils.logging", "io.euroc",
-             "io.rectify", "io.native", "io.euroc_fixture", "viz.html_view", "viz.live"):
+             "io.rectify", "io.native", "io.euroc_fixture", "viz.html_view", "viz.live",
+             "parallel.multi_session", "parallel.ranks", "entry"):
     assert "orbslam3_tpu_torch." + name in names, name
 import numpy as np
 from orbslam3_tpu_torch.loop import vocab as vb
@@ -92,6 +94,24 @@ maps = stereo_rectify_maps(ds.cam0.K, ds.cam0.dist, ds.cam0.T_BS, ds.cam1.K, ds.
 rect = remap_u8(torch.from_numpy(left), torch.from_numpy(maps.map_x0),
                 torch.from_numpy(maps.map_y0))
 assert len(ds) == 2 and rect.shape == left.shape == (120, 188) and rect.float().std() > 1
+from orbslam3_tpu_torch.parallel.multi_session import MultiSessionSlam
+ms = MultiSessionSlam(world.cam, cfg, n_sessions=2, chunk=2, devices=["cpu", "cpu"])
+ms.process_frame(0, *world.render_frame(0.0), *world.imu_window(0.0, 0.0), 0.0)
+ms.process_frame(1, *world.render_frame(0.0), *world.imu_window(0.0, 0.0), 0.0)
+ms.process_frame(0, *world.render_frame(0.1), *world.imu_window(0.0, 0.1), 0.1)
+ms.finalize()
+assert ms.launches == [1, 1] and ms.trajectory_arrays(1)[1].shape == (1, 3)
+import torch.distributed as dist
+from orbslam3_tpu_torch.parallel.distributed_ba import distributed_global_ba
+from orbslam3_tpu_torch.parallel.ranks import free_port
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                        rank=0)
+q1, p1, X1 = distributed_global_ba(pts, st.kf_q, st.kf_p, st.kf_valid, slam.cam, iters=1)
+dist.destroy_process_group()
+assert torch.equal(q1, q) and torch.equal(p1, p) and torch.equal(X1, X)
+from orbslam3_tpu_torch.entry import entry
+fn, args = entry(device="cpu")
+assert [tuple(o.shape) for o in fn(*args)] == [(4,), (3,), ()]
 assert not any(k == "jax" or k.startswith(("jax.", "orbslam3_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("modules", len(names))

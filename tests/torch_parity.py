@@ -124,3 +124,24 @@ def record_loop_services(slam, log: list):
     cl.on_keyframe, cl._process_packet = on_keyframe, process_packet
     cl._apply_verify, cl._correct = apply_verify, correct_
     return log
+
+
+def closer_gba_rank(rank, world, st, loop_kw: dict, cam: tuple, anchor: int = 0):
+    """One rank of the port loop closer's whole-map BA (`LoopCloser._global_ba`)
+    on the port MapState `st` inside a process group of `world` ranks
+    (parallel/ranks.py::run_ranks). Returns the closer's table record and
+    the refined poses and points as numpy."""
+    import numpy as np
+    import torch
+
+    from orbslam3_tpu_torch.frontend.camera import Camera
+    from orbslam3_tpu_torch.loop import closer as tcl
+    from orbslam3_tpu_torch.loop import vocab as tvb
+
+    torch.set_num_threads(1)
+    voc = tvb.train_vocabulary(np.random.default_rng(0).integers(0, 256, (200, 32))
+                               .astype(np.uint8), k=4, levels=2)
+    closer = tcl.LoopCloser(voc, tcl.LoopConfig(**loop_kw))
+    out, rec = closer._global_ba(st, anchor, Camera.create(*cam))
+    return dict(rec={k: rec[k] for k in ("slots", "tiles", "iters", "ranks")},
+                kf_q=out.kf_q.numpy(), kf_p=out.kf_p.numpy(), mp_pos=out.mp_pos.numpy())

@@ -155,6 +155,22 @@ Phases (each raises on failure; nothing is caught):
 10. the entry points, in the same process after the fleet: entry() on the
    card against the CPU (n_inliers exact, q and p within 1e-5), then
    dryrun_multichip(2) on the card (two gloo ranks, a two-session fleet);
+11. the host-orchestrated SlamSystem, (a) and (b) in a spawned process
+   beside phases 6b-6f, each run built with no `device` (it must pick the
+   card) and one FAST/NMS launch a frame (the counter set to 0 just before
+   each run and read just after): (a) the production SlamConfig() (752x480,
+   1024 features, 8 levels, MapCapacity()) over the bench world's first
+   SLAM_SYSTEM_FRAMES (104) frames on sensor-noise draw SLAM_SYSTEM_SEED (1),
+   held to the JAX record (orbslam3_tpu_torch/data/slam_system_reference.json,
+   scripts/make_slam_system_reference.py) with the band rule, ok_frac, the
+   IMU's frame and the maps created, then noise-free, printed beside the
+   record; (b) the worlds of the JAX package's SlamSystem tests
+   (SLAM_SYSTEM_WORLDS) held to each test's bars, the static world's reset
+   to the record's; (c) in this process after phases 9-10, before 5d:
+   scripts/profile_pipeline_torch.py at full width, each stage's host wall
+   and device-inclusive milliseconds (CUDA events, the device synchronized
+   at the stage's end), one launch a call in the stages that run the front
+   end;
 7. accuracy of the odometry paths against their JAX references over the
    frames they ran (check_accuracy) and of the session (check_session).
 
@@ -204,6 +220,126 @@ RELOC_BLACKOUT = (2.5, 4.5)
 RELOC_LOOP = dict(recent_gap=3, covis_edge_weight_min=10, bow_min_score_gate=False)
 SESSION_FRAMES, SESSION_MAX_KF, SESSION_SEED = 104, 16, 1  # scripts/make_session_reference.py
 LAUNCHES_PER_FRAME = 1  # one fast_nms_levels launch for the whole pyramid
+# phase 11 (scripts/make_slam_system_reference.py records the JAX runs):
+# SlamSystem under the production SlamConfig() on the bench world's first
+# frames, and the worlds and configurations of the JAX package's SlamSystem
+# tests, as (SyntheticConfig fields, SlamConfig fields with orb/cap/track as
+# keyword dicts, camera blackout or None); "extrinsics" takes euroc_t_bc()
+SLAM_SYSTEM_FRAMES, SLAM_SYSTEM_SEED = 104, 1
+_E2E_WORLD = dict(width=384, height=256, fx=240.0, fy=240.0, n_landmarks=600, duration=4.0,
+                  cam_hz=10.0, pos_amp=(1.2, 0.8, 0.3))
+_E2E_BIAS = dict(gyro_bias=(0.003, -0.002, 0.004), accel_bias=(0.03, 0.02, -0.04))
+_E2E_CFG = dict(orb=dict(n_features=384, n_levels=4),
+                cap=dict(max_kf=64, n_feat=384, max_mp=8192, max_obs=8),
+                track=dict(p_local=2048), ba_points=1024, kf_max_frames=2)
+SLAM_SYSTEM_WORLDS = {
+    # tests/test_e2e_stereo.py, test_e2e_inertial.py, test_atlas.py,
+    # test_extrinsics.py::test_e2e_inertial_with_euroc_extrinsics and the
+    # static world of test_recovery.py::test_static_start_triggers_bad_imu_reset
+    "stereo": (_E2E_WORLD, dict(_E2E_CFG, use_imu=False), None),
+    "inertial": (dict(_E2E_WORLD, **_E2E_BIAS), dict(_E2E_CFG, use_imu=True, imu_init_kfs=8),
+                 None),
+    "atlas": (dict(_E2E_WORLD, duration=6.0),
+              dict(_E2E_CFG, cap=dict(_E2E_CFG["cap"], max_kf=96), use_imu=False,
+                   lost_timeout=0.3, min_kfs_keep_map=5), (2.0, 3.0)),
+    "extrinsics": (dict(_E2E_WORLD, **_E2E_BIAS, extrinsics=True),
+                   dict(_E2E_CFG, use_imu=True, imu_init_kfs=8), None),
+    "static": (dict(width=256, height=192, fx=160.0, fy=160.0, n_landmarks=400, duration=13.0,
+                    cam_hz=4.0, pos_amp=(0.0, 0.0, 0.0), yaw_amp=0.0, rp_amp=0.0),
+               dict(orb=dict(n_features=256, n_levels=3),
+                    cap=dict(max_kf=64, n_feat=256, max_mp=4096, max_obs=8),
+                    track=dict(p_local=1024), ba_points=512, use_imu=True, kf_max_frames=2,
+                    imu_init_kfs=6, bad_imu_timeout=8.0), None),
+}
+
+
+def slam_system_world(pkg, name: str):
+    """SLAM_SYSTEM_WORLDS[name] built from either package's classes: `pkg`
+    holds SyntheticConfig, SyntheticWorld, euroc_t_bc, SlamConfig,
+    OrbConfig, MapCapacity and TrackConfig. Returns (world, SlamConfig,
+    blackout)."""
+    wkw, ckw, blackout = SLAM_SYSTEM_WORLDS[name]
+    wkw = dict(wkw)
+    if wkw.pop("extrinsics", False):
+        wkw["q_bc"], wkw["p_bc"] = pkg["euroc_t_bc"]()
+    ckw = dict(ckw, orb=pkg["OrbConfig"](**ckw["orb"]), cap=pkg["MapCapacity"](**ckw["cap"]),
+               track=pkg["TrackConfig"](**ckw["track"]))
+    return pkg["SyntheticWorld"](pkg["SyntheticConfig"](**wkw)), pkg["SlamConfig"](**ckw), blackout
+
+
+def slam_system_inputs(world, blackout=None) -> list:
+    """A test world's process_frame arguments, frame by frame, as the JAX
+    tests make them: render_frame's float32 images (flat 127 in the
+    blackout) and the IMU samples since the previous frame."""
+    import numpy as np
+
+    times = world.frame_times()
+    blank = np.full((world.cfg.height, world.cfg.width), 127.0, np.float32)
+    out = []
+    for i, t in enumerate(times):
+        dark = blackout is not None and blackout[0] <= t < blackout[1]
+        left, right = (blank, blank) if dark else world.render_frame(t)
+        out.append((left, right, *world.imu_window(times[i - 1] if i else t, t), float(t)))
+    return out
+
+
+def drive_slam_system(slam, inputs, hook=None) -> int | None:
+    """process_frame over `inputs` (a SlamSystem of either package);
+    returns the index of the frame after which the IMU was initialized.
+    `hook(i)` runs after frame i."""
+    init = None
+    for i, args in enumerate(inputs):
+        slam.process_frame(*args)
+        if init is None and slam.imu_initialized:
+            init = i
+        if hook is not None:
+            hook(i)
+    return init
+
+
+def slam_system_record(slam, world, imu_init_frame, blackout=None) -> dict:
+    """What a SlamSystem run of either package ended with: the JAX tests'
+    quantities (ATE over the trajectory against the ground truth's first
+    frames, ok_frac, the gravity direction error, biases, maps created,
+    the valid keyframes' map ids, the active map's keyframes, ok_frac after
+    the blackout) and the per-frame record."""
+    import numpy as np
+
+    from orbslam3_tpu_torch.eval.metrics import ate_rmse
+    from orbslam3_tpu_torch.io.synthetic import _qrot
+
+    def host(x):
+        return None if x is None else np.asarray(x.cpu() if hasattr(x, "is_cuda") else x)
+
+    tr = slam.trajectory
+    ts, ps, qs = slam.trajectory_arrays()
+    gt_p, _ = world.gt_trajectory()
+    ok = np.array([r.state == "Ok" for r in tr])
+    q0, _ = world.gt_pose(0.0)
+    g_true = _qrot(np.asarray(q0, np.float64) * [1, -1, -1, -1], np.array([0.0, 0.0, -9.81]))
+    g = host(slam.gravity_w)
+    g_err = (None if g is None else float(np.degrees(np.arccos(np.clip(
+        g_true @ g / (np.linalg.norm(g_true) * np.linalg.norm(g)), -1.0, 1.0)))))
+    m = slam.map
+    valid = host(m.kf_valid)
+    map_ids = host(m.kf_map_id)
+    post = ts > blackout[1] + 0.5 if blackout is not None else np.ones(len(ts), bool)
+    as_list = (lambda x: None if x is None else [float(v) for v in np.asarray(x, np.float64)])
+    return dict(
+        frames=len(tr), ate_m=float(ate_rmse(ps, gt_p[:len(ps)])), ok_frac=float(ok.mean()),
+        ok_frac_post=float(ok[post].mean()) if post.any() else None,
+        imu_initialized=bool(slam.imu_initialized), imu_init_frame=imu_init_frame,
+        gravity_w=as_list(g), gravity_err_deg=g_err, bg=as_list(host(slam.bg)),
+        ba=as_list(host(slam.ba)), n_maps_created=int(slam.n_maps_created),
+        bad_imu_resets=int(getattr(slam, "bad_imu_resets", 0)),
+        map_ids=sorted({int(x) for x in map_ids[valid]}),
+        n_active=int(((map_ids == int(host(m.active_map))) & valid).sum()),
+        n_kf=int(host(m.n_kf)), n_kf_valid=int(valid.sum()), n_mp=int(host(m.n_mp)),
+        per_frame=dict(t=[float(r.t) for r in tr], state=[r.state for r in tr],
+                       is_kf=[bool(r.is_keyframe) for r in tr],
+                       n_matches=[int(r.n_matches) for r in tr],
+                       n_inliers=[int(r.n_inliers) for r in tr],
+                       p=[as_list(r.p) for r in tr], q=[as_list(r.q) for r in tr]))
 # scripts/bench_fleet.py: 8 sessions, session 0 with half the frames, chunk 4
 FLEET_SESSIONS, FLEET_FRAMES, FLEET_CHUNK = 8, 24, 4
 KERNEL_NAME = "fast_nms_kernel"
@@ -1794,53 +1930,58 @@ def fleet_run(card) -> dict:
                 n_kf=n_kf, host_syncs=ms.host_syncs)
 
 
-def fleet_worker(card: str, log_path: str, out_path: str, settings: dict):
-    """Phases 9 and 10 in a spawned process (the fleet, then the entry
-    points): its log to log_path, its record or the error to out_path as
-    JSON."""
+def fleet_and_entry(card: str) -> dict:
+    """Phases 9 and 10: the fleet, then the entry points."""
+    out = fleet_run(card)
+    phase("10 the entry points: entry() against the CPU, dryrun_multichip(2)")
+    out["entry"] = entry_phase(card)
+    return out
+
+
+def phase_worker(task: str, args: tuple, log_path: str, out_path: str, settings: dict):
+    """globals()[task](*args) in a spawned process: its log to log_path,
+    its record or the error to out_path as JSON."""
     import traceback
 
     globals().update(settings)
     sys.stdout = open(log_path, "w", buffering=1)
     try:
-        out = fleet_run(card)
-        phase("10 the entry points: entry() against the CPU, dryrun_multichip(2)")
-        out["entry"] = entry_phase(card)
+        out = globals()[task](*args)
     except BaseException:
         out = {"error": traceback.format_exc()}
     with open(out_path, "w") as f:
         json.dump(out, f, default=str)
 
 
-def fleet_start(card: str) -> dict:
-    """Start phases 9 and 10 in a spawned process beside whatever this
-    process runs next; `fleet_finish` waits for them."""
+def phase_start(task: str, *args) -> dict:
+    """Start globals()[task](*args) in a spawned process beside whatever
+    this process runs next; `phase_finish` waits for it."""
     import multiprocessing
     import tempfile
 
     d = tempfile.TemporaryDirectory()
-    paths = [os.path.join(d.name, f"fleet.{x}") for x in ("log", "json")]
+    paths = [os.path.join(d.name, f"{task}.{x}") for x in ("log", "json")]
     p = multiprocessing.get_context("spawn").Process(
-        target=fleet_worker, args=(card, *paths,
+        target=phase_worker, args=(task, args, *paths,
                                    dict(DEVICE=DEVICE, LAUNCHES_PER_FRAME=LAUNCHES_PER_FRAME)))
     p.start()
-    return dict(proc=p, paths=paths, dir=d, t0=time.perf_counter())
+    return dict(proc=p, paths=paths, dir=d, t0=time.perf_counter(), task=task)
 
 
-def fleet_finish(handle: dict, timeout_s: float = 600.0) -> dict:
-    """Wait for phases 9 and 10, print their log, raise if one failed a
-    hold."""
+def phase_finish(handle: dict, tag: str, timeout_s: float = 600.0) -> dict:
+    """Wait for a spawned phase, print its log under `tag`, raise if it
+    failed a hold."""
     t0 = time.perf_counter()
     p, (log_path, out_path) = handle["proc"], handle["paths"]
     try:
         p.join(timeout_s)
         if p.is_alive():
-            raise AssertionError(f"fleet: still running after {timeout_s:.0f} s")
+            raise AssertionError(f"{tag}: still running after {timeout_s:.0f} s")
         with open(log_path) as f:
             for line in f:
-                log(f"[fleet] {line.rstrip()}")
+                log(f"[{tag}] {line.rstrip()}")
         if not os.path.exists(out_path):
-            raise AssertionError(f"fleet: exited with code {p.exitcode} and no record")
+            raise AssertionError(f"{tag}: exited with code {p.exitcode} and no record")
         with open(out_path) as f:
             rec = json.load(f)
     finally:
@@ -1848,11 +1989,207 @@ def fleet_finish(handle: dict, timeout_s: float = 600.0) -> dict:
             p.terminate()
             p.join(10)
         handle["dir"].cleanup()
-    log(f"fleet: done {time.perf_counter() - handle['t0']:.1f} s after it started (waited "
+    log(f"{tag}: done {time.perf_counter() - handle['t0']:.1f} s after it started (waited "
         f"{time.perf_counter() - t0:.1f} s for it here)")
     if "error" in rec:
-        raise AssertionError("fleet failed:\n" + rec["error"])
+        raise AssertionError(f"{tag} failed:\n" + rec["error"])
     return rec
+
+
+def slam_system_run(path: str, world, inputs, cfg, blackout=None) -> dict:
+    """Phase 11: one run of the port's SlamSystem, built with no `device`
+    (it must pick the card itself), with the FAST/NMS launch count set to 0
+    just before it and held to one a frame just after. Returns
+    slam_system_record's record with the launches, frames/s after WARMUP
+    frames, host syncs a frame and peak device memory."""
+    import numpy as np
+    import torch
+
+    from orbslam3_tpu_torch.models.slam import SlamSystem
+    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms
+
+    on_card = DEVICE == "cuda"
+    slam = SlamSystem(world.cam, cfg) if on_card else SlamSystem(world.cam, cfg, device=DEVICE)
+    if on_card and slam.device.type != "cuda":
+        raise AssertionError(f"{path}: SlamSystem without a device argument runs on {slam.device}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    clock = {}
+
+    def hook(i):
+        if i == WARMUP - 1:
+            sync()
+            clock.update(t0=time.perf_counter(), syncs=slam.host_syncs)
+
+    fast_nms.launches = 0
+    init = drive_slam_system(slam, inputs, hook=hook)
+    sync()
+    launches = fast_nms.launches
+    wall = time.perf_counter() - clock["t0"]
+    if launches != LAUNCHES_PER_FRAME * len(inputs):
+        raise AssertionError(f"{path}: fast_nms launched {launches} times over {len(inputs)} "
+                             f"frames, expected {LAUNCHES_PER_FRAME} a frame")
+    rec = slam_system_record(slam, world, init, blackout)
+    ps = np.asarray(rec["per_frame"]["p"], np.float64)
+    if not np.isfinite(ps).all():
+        raise AssertionError(f"{path}: the trajectory is not finite")
+    timed = len(inputs) - WARMUP
+    rec.update(launches=launches, fps=timed / wall, host_syncs_per_frame=(
+        slam.host_syncs - clock["syncs"]) / timed, peak_mib=(
+        torch.cuda.max_memory_allocated() / 2**20 if on_card else 0.0))
+    return rec
+
+
+def log_slam_system(path: str, rec: dict, ref: dict, card: str):
+    imu = (f", IMU after frame {rec['imu_init_frame']} (JAX {ref['imu_init_frame']})"
+           if rec["imu_initialized"] or ref["imu_initialized"] else "")
+    g = (f", gravity error {rec['gravity_err_deg']:.3f} deg (JAX {ref['gravity_err_deg']:.3f})"
+         if rec["gravity_err_deg"] is not None and ref["gravity_err_deg"] is not None else "")
+    log(f"{path}: {rec['frames']} frames tracked, ATE {rec['ate_m']:.5f} m (JAX "
+        f"{ref['ate_m']:.5f}), ok_frac {rec['ok_frac']:.4f} (JAX {ref['ok_frac']:.4f}){imu}{g}, "
+        f"maps {rec['n_maps_created']} (JAX {ref['n_maps_created']}), bad-IMU resets "
+        f"{rec['bad_imu_resets']} (JAX {ref['bad_imu_resets']}), n_kf {rec['n_kf']} (JAX "
+        f"{ref['n_kf']}); {rec['fps']:.3f} frames/s after {WARMUP} warm-up frames, host syncs/frame "
+        f"{rec['host_syncs_per_frame']:.3f}, fast_nms launches {rec['launches']}, peak device "
+        f"memory {rec['peak_mib']:.1f} MiB  [{card}]")
+
+
+def slam_system_full(card: str, frames, ref: dict) -> dict:
+    """Phase 11 (a): SlamSystem under the production SlamConfig() on the
+    bench world's first SLAM_SYSTEM_FRAMES frames, on sensor-noise draw
+    SLAM_SYSTEM_SEED, held to the JAX record of that draw: ATE within
+    max(0.02 m, 0.5 ATE_jax), ok_frac >= the record's - 0.05, the IMU
+    initialized after the record's frame, as many maps; then on the
+    noise-free frames, printed beside the record, not held (a knife edge,
+    ROADMAP queue 3 item 4)."""
+    import numpy as np
+
+    from orbslam3_tpu_torch.io.synthetic import perturb_frames
+    from orbslam3_tpu_torch.models.slam import SlamConfig
+
+    n = SLAM_SYSTEM_FRAMES
+    world, times, frames, imu = build_world(frames[:n])
+    times, imu = times[:n], imu[:n]
+    draws = {d["seed"]: d for d in ref["draws"]}
+    out = {}
+    for seed in (SLAM_SYSTEM_SEED, None):
+        fr = frames if seed is None else perturb_frames(frames, seed)
+        inputs = [(left, right, *imu[i], float(times[i])) for i, (left, right) in enumerate(fr)]
+        path = f"SlamSystem, SlamConfig(), {n} frames of the bench world, draw {seed}"
+        rec = slam_system_run(path, world, inputs, SlamConfig())
+        jax_rec = draws[seed]
+        log_slam_system(path, rec, jax_rec, card)
+        if seed is not None:
+            if abs(rec["ate_m"] - jax_rec["ate_m"]) > band(jax_rec["ate_m"]):
+                raise AssertionError(f"{path}: ATE {rec['ate_m']:.5f} m outside the band of the "
+                                     f"JAX record's {jax_rec['ate_m']:.5f}")
+            if rec["ok_frac"] < jax_rec["ok_frac"] - 0.05:
+                raise AssertionError(f"{path}: ok_frac {rec['ok_frac']:.4f} below the JAX "
+                                     f"record's {jax_rec['ok_frac']:.4f} - 0.05")
+            if rec["imu_init_frame"] != jax_rec["imu_init_frame"]:
+                raise AssertionError(f"{path}: IMU initialized after frame "
+                                     f"{rec['imu_init_frame']}, the JAX record after "
+                                     f"{jax_rec['imu_init_frame']}")
+            if rec["n_maps_created"] != jax_rec["n_maps_created"]:
+                raise AssertionError(f"{path}: {rec['n_maps_created']} maps, the JAX record "
+                                     f"{jax_rec['n_maps_created']}")
+        pf, jpf = rec.pop("per_frame"), jax_rec["per_frame"]
+        differ = [i for i in range(min(len(pf["state"]), len(jpf["state"])))
+                  if (pf["is_kf"][i], pf["n_inliers"][i]) != (jpf["is_kf"][i],
+                                                               jpf["n_inliers"][i])]
+        far = np.flatnonzero(np.linalg.norm(np.asarray(pf["p"]) - np.asarray(jpf["p"])[
+            :len(pf["p"])], axis=1) > 1e-3)
+        log(f"{path}: first departure from the JAX record: keyframe or inlier count at frame "
+            f"{differ[0] if differ else None}, position by > 1 mm at frame "
+            f"{int(far[0]) if len(far) else None}")
+        out["draw1" if seed is not None else "noise_free"] = rec
+    return out
+
+
+def slam_system_worlds(card: str, ref: dict) -> dict:
+    """Phase 11 (b): the JAX package's SlamSystem tests, each world at its
+    own size and held to that test's bars (tests/test_e2e_stereo.py,
+    test_e2e_inertial.py, test_atlas.py, test_extrinsics.py::
+    test_e2e_inertial_with_euroc_extrinsics), and the static world of
+    tests/test_recovery.py run through SlamSystem: bad_imu_resets and
+    imu_initialized equal to the JAX record's."""
+    import numpy as np
+
+    from orbslam3_tpu_torch.frontend.orb import OrbConfig
+    from orbslam3_tpu_torch.io.synthetic import SyntheticConfig, SyntheticWorld, euroc_t_bc
+    from orbslam3_tpu_torch.map.slam_map import MapCapacity
+    from orbslam3_tpu_torch.models.slam import SlamConfig
+    from orbslam3_tpu_torch.models.tracker import TrackConfig
+
+    pkg = dict(SyntheticConfig=SyntheticConfig, SyntheticWorld=SyntheticWorld,
+               euroc_t_bc=euroc_t_bc, SlamConfig=SlamConfig, OrbConfig=OrbConfig,
+               MapCapacity=MapCapacity, TrackConfig=TrackConfig)
+    out = {}
+    for name in SLAM_SYSTEM_WORLDS:
+        world, cfg, blackout = slam_system_world(pkg, name)
+        inputs = slam_system_inputs(world, blackout)
+        path = f"SlamSystem, the {name} test's world"
+        rec = slam_system_run(path, world, inputs, cfg, blackout)
+        rec.pop("per_frame")
+        log_slam_system(path, rec, ref[name], card)
+        bars = []
+        if name in ("stereo", "inertial", "extrinsics"):
+            bars += [("ok_frac > 0.9", rec["ok_frac"] > 0.9),
+                     ("ATE < " + ("0.05" if name == "stereo" else "0.06"),
+                      rec["ate_m"] < (0.05 if name == "stereo" else 0.06))]
+        if name in ("inertial", "extrinsics"):
+            bars += [("IMU initialized", rec["imu_initialized"]),
+                     ("gravity within 5 deg", rec["imu_initialized"]
+                      and rec["gravity_err_deg"] < 5.0)]
+        if name == "inertial":
+            bars.append(("bg within 1.5e-2", rec["imu_initialized"] and bool(np.all(np.abs(
+                np.asarray(rec["bg"]) - np.asarray(world.cfg.gyro_bias)) <= 1.5e-2))))
+        if name == "atlas":
+            bars += [(">= 2 maps created", rec["n_maps_created"] >= 2),
+                     (">= 2 map ids among the valid keyframes", len(rec["map_ids"]) >= 2),
+                     (">= 3 keyframes in the active map", rec["n_active"] >= 3),
+                     ("ok_frac > 0.8 after the blackout", rec["ok_frac_post"] > 0.8)]
+        if name == "static":
+            bars += [("bad_imu_resets as the JAX record",
+                      rec["bad_imu_resets"] == ref[name]["bad_imu_resets"]),
+                     ("imu_initialized as the JAX record",
+                      rec["imu_initialized"] == ref[name]["imu_initialized"])]
+        failed = [b for b, ok in bars if not ok]
+        log(f"{path}: bars {[b for b, _ in bars]}: " + ("all held" if not failed else
+                                                         f"FAILED {failed}"))
+        if failed:
+            raise AssertionError(f"{path}: failed {failed}")
+        out[name] = rec
+    return out
+
+
+def slam_system_phase(card: str, frames) -> dict:
+    """Phase 11 (a) and (b), in a spawned process beside phase 6."""
+    with open(os.path.join(ROOT, "orbslam3_tpu_torch", "data",
+                           "slam_system_reference.json")) as f:
+        ref = json.load(f)
+    phase("11 (a) SlamSystem at full width against data/slam_system_reference.json")
+    full = slam_system_full(card, frames, ref["full"])
+    phase("11 (b) SlamSystem on the worlds of the JAX package's SlamSystem tests")
+    return dict(full=full, worlds=slam_system_worlds(card, ref["worlds"]))
+
+
+def profile_phase(card: str) -> dict:
+    """Phase 11 (c): scripts/profile_pipeline_torch.py at full width on the
+    card: each stage's host wall and device-inclusive milliseconds; the
+    stages that run the front end launch FAST/NMS once a call, the others
+    never."""
+    import profile_pipeline_torch
+
+    out = profile_pipeline_torch.profile(None if DEVICE == "cuda" else DEVICE,
+                                         log=lambda m: log(f"  {m}  [{card}]"))
+    front = {"detect_orb(left)", "process_stereo", "full process_frame"}
+    bad = {k: v["launches"] for k, v in out.items()
+           if v["launches"] != LAUNCHES_PER_FRAME * (k in front)}
+    if bad:
+        raise AssertionError(f"profile: FAST/NMS launches a call {bad}, expected "
+                             f"{LAUNCHES_PER_FRAME} for {sorted(front)} and 0 elsewhere")
+    return out
 
 
 def distributed_gba_phase(first, cfg, cam, card) -> dict:
@@ -2380,7 +2717,9 @@ def main() -> int:
         euroc_handle = euroc_start(fixtures, json.load(f), card)
     phase("9 the fleet, then 10 the entry points, started in a spawned process beside phases "
           "6b-6f")
-    fleet_handle = fleet_start(card)
+    fleet_handle = phase_start("fleet_and_entry", card)
+    phase("11 (a), (b) SlamSystem, started in a spawned process beside phases 6b-6f")
+    ss_handle = phase_start("slam_system_phase", card, frames[:SLAM_SYSTEM_FRAMES])
 
     phase(f"6b loop closing: the revisit world ({REVISIT_FRAMES} frames)")
     rv, rv_rec, rv_first, launches_revisit = revisit_run(card, ref_loop["revisit"],
@@ -2400,8 +2739,13 @@ def main() -> int:
     phase("8 EuRoC ingest: the runs' results")
     euroc = euroc_finish(euroc_handle)
     phase("9, 10 the fleet and the entry points: their results")
-    fleet = fleet_finish(fleet_handle)
+    fleet = phase_finish(fleet_handle, "fleet")
     entries = fleet.pop("entry")
+    phase("11 (a), (b) SlamSystem: their results")
+    slam_sys = phase_finish(ss_handle, "SlamSystem", timeout_s=900.0)
+    phase("11 (c) scripts/profile_pipeline_torch.py at full width: the stages, host wall and "
+          "device-inclusive")
+    stages = profile_phase(card)
 
     phase("5d the main run resumed from its checkpoint, with the profiler window (last)")
     us_frame = resume_and_profile(world, *main_frames, vi, ckpt, saved, card)
@@ -2432,7 +2776,15 @@ def main() -> int:
                              "euroc_loop_jax_vocab": euroc["loop_jax_vocab"]["launches"],
                              "euroc_loop_own_vocab": euroc["loop_own_vocab"]["launches"],
                              "detect_orb_vocab_training": euroc["vocab_training"]["launches"],
-                             "fleet": fleet["launches"]},
+                             "fleet": fleet["launches"],
+                             "slam_system_draw1": slam_sys["full"]["draw1"]["launches"],
+                             "slam_system_noise_free":
+                                 slam_sys["full"]["noise_free"]["launches"],
+                             **{f"slam_system_{k}": v["launches"]
+                                for k, v in slam_sys["worlds"].items()},
+                             "profile_pipeline_process_frame": round(
+                                 stages["full process_frame"]["launches"]
+                                 * stages["full process_frame"]["calls"])},
         "chunk8": {**kern16, "frames_per_s": fps_chunk, "chunk1_frames_per_s": fps},
         "loop": {"bench_warmup_s": warm_a, "revisit": {k: v for k, v in rv_rec.items()
                                                         if k != "corrections"},
@@ -2443,6 +2795,10 @@ def main() -> int:
             for k in ("full", "loop_jax_vocab", "loop_own_vocab")}},
         "fleet": {k: v for k, v in fleet.items() if k != "launches"},
         "distributed_gba": dgba, "entry": entries,
+        "slam_system": {"full": slam_sys["full"], "worlds": {
+            k: {f: v[f] for f in ("fps", "ate_m", "ok_frac", "imu_init_frame", "n_maps_created",
+                                  "bad_imu_resets", "peak_mib")}
+            for k, v in slam_sys["worlds"].items()}, "stages_ms": stages},
         "library_ms": None, "profile_ms": us_frame / 1e3,
         "earlier_ms_is": "8 one-level launches of this kernel, the call pattern before the "
                          "levels were fused, timed in this run",

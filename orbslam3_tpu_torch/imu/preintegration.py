@@ -82,12 +82,14 @@ def _mT(x):
     return x.transpose(-1, -2)
 
 
-def integrate(gyro, acc, dts, mask, bias_g, bias_a, noise: ImuNoise = ImuNoise()):
+def integrate(gyro, acc, dts, mask, bias_g, bias_a, noise: ImuNoise = ImuNoise(), init=None):
     """Preintegrate a padded sample window sample by sample (the JAX
     package's lax.scan): gyro/acc (N, 3), dts (N,), mask (N,) bool/float
     (padding rows contribute nothing), biases (3,) held fixed. Returns the
     window's PreintState; `integrate_assoc` computes the same by a tree of
-    merges."""
+    merges. `init` (a PreintState at the same biases) continues an earlier
+    call: integrating rows [0, a) and then, from that result, rows [a, b)
+    gives the call over rows [0, b) bit for bit."""
     maskf = mask.to(torch.float32)
     dts = dts * maskf
     dev = gyro.device
@@ -96,7 +98,7 @@ def integrate(gyro, acc, dts, mask, bias_g, bias_a, noise: ImuNoise = ImuNoise()
                          device=dev)
     bw = torch.diag(torch.tensor([noise.sigma_bg**2] * 3 + [noise.sigma_ba**2] * 3,
                                  dtype=torch.float32, device=dev))
-    c = PreintState.identity(bias_g, bias_a, device=dev)
+    c = PreintState.identity(bias_g, bias_a, device=dev) if init is None else init
     for k in range(gyro.shape[0]):
         w = gyro[k] - c.bias_g
         a = acc[k] - c.bias_a

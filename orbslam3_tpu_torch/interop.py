@@ -11,7 +11,8 @@ numbers pass through. A JAX state turned into numpy
 unchanged, which is how the parity tests start both packages from the
 same map. `carry_loop_closer` copies a loop closer's host and device state
 into the port's; `carry_multi_session` turns a JAX fleet's stacked state
-into the port's per-session pairs.
+into the port's per-session pairs; `carry_slam_system` turns a JAX
+SlamSystem's state into the port's.
 """
 from __future__ import annotations
 
@@ -115,3 +116,37 @@ def carry_multi_session(state_np, devices) -> list:
     maps, tss = state_np
     return [(from_numpy_tree(_slice_tree(maps, s), dev), from_numpy_tree(_slice_tree(tss, s), dev))
             for s, dev in enumerate(devices)]
+
+
+# the SlamSystem attributes that carry_slam_system takes
+SLAM_SYSTEM_STATE = ("map", "state", "q", "p", "v", "bg", "ba", "motion_dq", "motion_dp", "last_t",
+                     "last_kf_id", "frames_since_kf", "ref_inliers", "kfs_since_cull", "_kf_gyro",
+                     "_kf_acc", "_kf_dts", "imu_initialized", "gravity_w", "lost_since",
+                     "n_maps_created", "bad_imu_resets", "trajectory")
+
+
+def carry_slam_system(state_np: dict, device=None) -> dict:
+    """A JAX SlamSystem's state as the port SlamSystem's attributes on
+    `device`. `state_np` maps each name of SLAM_SYSTEM_STATE to the JAX
+    system's value with its arrays as numpy (the map through
+    `jax.tree.map(np.asarray, ...)`, the IMU buffers as lists of arrays, the
+    trajectory as FrameResults; bad_imu_resets 0 where the JAX system never
+    set it). Returns {attribute: value}; `vars(slam).update(...)` sets them
+    on a port SlamSystem, whose IMU caches are reset with them."""
+    from orbslam3_tpu_torch.models.slam import FrameResult
+
+    def tensor(a):
+        return None if a is None else torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    out = {k: state_np[k] for k in ("state", "last_kf_id", "frames_since_kf", "ref_inliers",
+                                     "kfs_since_cull", "imu_initialized", "n_maps_created",
+                                     "bad_imu_resets")}
+    out.update({k: None if state_np[k] is None else float(state_np[k])
+                for k in ("last_t", "lost_since")})
+    out.update({k: tensor(state_np[k]) for k in ("q", "p", "v", "bg", "ba", "motion_dq",
+                                                 "motion_dp", "gravity_w")})
+    out.update({k: [np.array(a) for a in state_np[k]] for k in ("_kf_gyro", "_kf_acc", "_kf_dts")})
+    out["map"] = from_numpy_tree(state_np["map"], device)
+    out["trajectory"] = [FrameResult(*r) for r in state_np["trajectory"]]
+    out.update(_preint_frame=None, _frame_imu=None, _kf_preint_cache=None)
+    return out

@@ -30,11 +30,32 @@ def _intrinsics(cam: Camera):
                         torch.stack([z, z, o])])
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once to float32 (the product of two float32 values
+    is exact in float64; the float64 sum rounds before the float32
+    rounding, which moved no result on the inputs measured)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _projection_matrix(cam: Camera, q_wc, p_wc):
-    """3x4 world->pixel projection for a camera pose (T_BC already applied)."""
-    R = quat.to_matrix(quat.conj(q_wc))  # world -> cam rotation
-    t = -R @ p_wc
-    return _intrinsics(cam) @ torch.cat([R, t[:, None]], dim=1)
+    """3x4 world->pixel projection K [R | -R p] for a camera pose (T_BC
+    already applied), rounded as XLA:CPU computes the JAX package's: each
+    rotation entry's a b +- c d as fma(a, b, +-(c d)), R p as a chain of
+    fused multiply-adds, and the rows of K @ [R | t] as fma(c, X2, f X0)."""
+    w, x, y, z = (q_wc * torch.tensor([1.0, -1.0, -1.0, -1.0], device=q_wc.device)).unbind(-1)
+    R = torch.stack([
+        torch.stack([1 - 2 * _fma(y, y, z * z), 2 * _fma(x, y, -(w * z)),
+                     2 * _fma(x, z, w * y)]),
+        torch.stack([2 * _fma(x, y, w * z), 1 - 2 * _fma(x, x, z * z),
+                     2 * _fma(y, z, -(w * x))]),
+        torch.stack([2 * _fma(x, z, -(w * y)), 2 * _fma(y, z, w * x),
+                     1 - 2 * _fma(x, x, y * y)]),
+    ])  # world -> cam rotation
+    Rp = R[:, 0] * p_wc[0]
+    for k in (1, 2):
+        Rp = _fma(R[:, k], p_wc[k], Rp)
+    X = torch.cat([R, -Rp[:, None]], dim=1)
+    return torch.stack([_fma(cam.cx, X[2], cam.fx * X[0]), _fma(cam.cy, X[2], cam.fy * X[1]), X[2]])
 
 
 def _dlt(P1, P2, uv1, uv2):
@@ -42,32 +63,53 @@ def _dlt(P1, P2, uv1, uv2):
     least squares: the homogeneous scale is fixed (X_w = 1), which leaves a
     3-unknown problem whose 3x3 normal equations are solved in closed form
     (adjugate). It differs from the null-vector form only near infinity,
-    which the depth and parallax gates reject."""
-    A = torch.stack([
-        uv1[:, 0:1] * P1[2] - P1[0],
-        uv1[:, 1:2] * P1[2] - P1[1],
-        uv2[:, 0:1] * P2[2] - P2[0],
-        uv2[:, 1:2] * P2[2] - P2[1],
-    ], dim=1)  # (N, 4, 4)
-    A = A / torch.linalg.norm(A, dim=2, keepdim=True).clamp(min=1e-9)
+    which the depth and parallax gates reject.
+
+    Every step rounds as the JAX package's compiled `_dlt` does on XLA:CPU,
+    which contracts each multiply feeding an add into a fused multiply-add:
+    the rows uv * P[2] - P[0]; the squared row norms, the B^T B and -B^T d
+    sums and adj @ b as chains of fused multiply-adds in index order from a
+    rounded first product; each cofactor x y - z w as fma(x, y, -(z w)); det
+    as fma(M02, c20, fma(M00, c00, M01 c10)); the square root correctly
+    rounded (torch's float32 CPU sqrt is not always)."""
+    f32 = torch.float32
+
+    def rows(uv, P):
+        return [_fma(uv[:, 0:1], P[2], -P[0]), _fma(uv[:, 1:2], P[2], -P[1])]
+
+    A = torch.stack(rows(uv1, P1) + rows(uv2, P2), dim=1)  # (N, 4, 4)
+    s = (A[:, :, 0] * A[:, :, 0]).to(f32)
+    for k in range(1, 4):
+        s = _fma(A[:, :, k], A[:, :, k], s)
+    A = A / torch.sqrt(s.double()).to(f32).clamp(min=1e-9)[:, :, None]
     B, d = A[:, :, :3], A[:, :, 3]
-    M = B.transpose(1, 2) @ B
-    b = -(B.transpose(1, 2) @ d[:, :, None])[:, :, 0]
+    M = B[:, 0, :, None] * B[:, 0, None, :]
+    b = -B[:, 0] * d[:, 0:1]
+    for k in range(1, 4):
+        M = _fma(B[:, k, :, None], B[:, k, None, :], M)
+        b = _fma(-B[:, k], d[:, k:k + 1], b)
     m = lambda i, j: M[:, i, j]  # noqa: E731
-    c00 = m(1, 1) * m(2, 2) - m(1, 2) * m(2, 1)
-    c01 = m(0, 2) * m(2, 1) - m(0, 1) * m(2, 2)
-    c02 = m(0, 1) * m(1, 2) - m(0, 2) * m(1, 1)
-    c10 = m(1, 2) * m(2, 0) - m(1, 0) * m(2, 2)
-    c11 = m(0, 0) * m(2, 2) - m(0, 2) * m(2, 0)
-    c12 = m(0, 2) * m(1, 0) - m(0, 0) * m(1, 2)
-    c20 = m(1, 0) * m(2, 1) - m(1, 1) * m(2, 0)
-    c21 = m(0, 1) * m(2, 0) - m(0, 0) * m(2, 1)
-    c22 = m(0, 0) * m(1, 1) - m(0, 1) * m(1, 0)
-    det = m(0, 0) * c00 + m(0, 1) * c10 + m(0, 2) * c20
+
+    def cof(x, y, z, w):
+        return _fma(x, y, -(z * w))
+
+    c00 = cof(m(1, 1), m(2, 2), m(1, 2), m(2, 1))
+    c01 = cof(m(0, 2), m(2, 1), m(0, 1), m(2, 2))
+    c02 = cof(m(0, 1), m(1, 2), m(0, 2), m(1, 1))
+    c10 = cof(m(1, 2), m(2, 0), m(1, 0), m(2, 2))
+    c11 = cof(m(0, 0), m(2, 2), m(0, 2), m(2, 0))
+    c12 = cof(m(0, 2), m(1, 0), m(0, 0), m(1, 2))
+    c20 = cof(m(1, 0), m(2, 1), m(1, 1), m(2, 0))
+    c21 = cof(m(0, 1), m(2, 0), m(0, 0), m(2, 1))
+    c22 = cof(m(0, 0), m(1, 1), m(0, 1), m(1, 0))
+    det = _fma(m(0, 2), c20, _fma(m(0, 0), c00, m(0, 1) * c10))
     adj = torch.stack([torch.stack([c00, c01, c02], -1), torch.stack([c10, c11, c12], -1),
                        torch.stack([c20, c21, c22], -1)], -2)
+    x = adj[:, :, 0] * b[:, 0:1]
+    for k in (1, 2):
+        x = _fma(adj[:, :, k], b[:, k:k + 1], x)
     det = torch.where(torch.abs(det) > 1e-12, det, torch.full_like(det, 1e-12))
-    return (adj @ b[:, :, None])[:, :, 0] / det[:, None]
+    return x / det[:, None]
 
 
 def _hat(v):

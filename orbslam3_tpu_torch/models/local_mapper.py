@@ -1,5 +1,5 @@
 """Local mapping: gather a window's BA problem and scatter its results back
-(port of build_ba_problem/apply_ba_results and of
+(port of build_ba_problem/apply_ba_results, local_ba_step and
 build_vi_ba_problem/apply_vi_ba_results from
 orbslam3_tpu/models/local_mapper.py). The visual problem takes the
 covisibility window, the visual-inertial one the kf_prev temporal chain."""
@@ -11,7 +11,8 @@ from orbslam3_tpu_torch.imu.preintegration import PreintState
 from orbslam3_tpu_torch.map.slam_map import (MapState, local_window, mp_slots_for_kfs,
                                              scatter_set)
 from orbslam3_tpu_torch.ops.fast import topk_stable
-from orbslam3_tpu_torch.optim.local_ba import BAProblem
+from orbslam3_tpu_torch.frontend.camera import Camera
+from orbslam3_tpu_torch.optim.local_ba import BAProblem, solve_local_ba
 from orbslam3_tpu_torch.optim.vi_ba import VIBAProblem
 
 I32 = torch.int32
@@ -94,6 +95,18 @@ def apply_ba_results(st: MapState, ids, kf_valid, q, p, pt_ids, pt_valid, Xw):
     return (_scatter_kf_rows(st.kf_q, ids, kf_valid, q),
             _scatter_kf_rows(st.kf_p, ids, kf_valid, p),
             _scatter_kf_rows(st.mp_pos, pt_ids, pt_valid, Xw))
+
+
+def local_ba_step(st: MapState, cam: Camera, kf_id, window: int = 8, max_points: int = 2048,
+                  iters: int = 8, fixed: int = 8):
+    """One local BA pass around kf_id: gather, solve, scatter the optimized
+    poses (the window's free keyframes) and points back. Returns
+    (MapState, BAResult)."""
+    prob, ids, valid, pt_ids, pt_valid = build_ba_problem(st, kf_id, window, max_points, fixed)
+    res = solve_local_ba(prob, cam, iters=iters)
+    kf_q, kf_p, mp_pos = apply_ba_results(st, ids, valid & prob.opt_cam, res.q, res.p, pt_ids,
+                                          pt_valid, res.Xw)
+    return st._replace(kf_q=kf_q, kf_p=kf_p, mp_pos=mp_pos), res
 
 
 def build_vi_ba_problem(st: MapState, kf_id, window: int, max_points: int, gravity_w,

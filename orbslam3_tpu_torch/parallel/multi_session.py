@@ -13,10 +13,12 @@ frames.
 
 The host API mirrors the JAX class. Frames are buffered per session; a
 flush takes c = min(chunk, longest pending) and every session up to c of
-its frames. A session with fewer (or none) steps only those: its remaining
-slots are `valid=False`, leave its state untouched and record the JAX
-package's placeholder FrameOut, which `trajectory_arrays` filters out. One
-short or stalled stream therefore never repeats a frame.
+its frames, and runs the fleet's step (`make_multi_session_step`, the
+counterpart of the JAX package's sharded step). A session with fewer (or
+none) steps only those: its remaining slots are `valid=False`, leave its
+state untouched and record the JAX package's placeholder FrameOut, which
+`trajectory_arrays` filters out. One short or stalled stream therefore never
+repeats a frame.
 
 No host services run (no IMU initialization, compaction or loop closing),
 as in the JAX package: a fleet with use_imu=True never initializes its IMU.
@@ -34,7 +36,7 @@ from orbslam3_tpu_torch import set_full_precision
 from orbslam3_tpu_torch.frontend.camera import Camera
 from orbslam3_tpu_torch.imu.preintegration import pad_imu_window
 from orbslam3_tpu_torch.map.slam_map import empty_map
-from orbslam3_tpu_torch.models.fused import (FrameOut, TrackState, _as_u8, _upload,
+from orbslam3_tpu_torch.models.fused import (FrameOut, TrackState, _as_u8,
                                               slam_step_chunk)
 
 
@@ -68,6 +70,75 @@ def _placeholder(st, ts) -> FrameOut:
                     rel_p=torch.zeros(3, dtype=torch.float32, device=dev))
 
 
+def _host(x) -> np.ndarray:
+    """A host array or tensor as a numpy array."""
+    return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+
+def _rows(x, idx, dev):
+    """Rows `idx` of a host array or tensor, stacked on `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x[idx].to(dev)
+    return torch.from_numpy(np.ascontiguousarray(x[idx])).to(dev)
+
+
+def make_multi_session_step(devices, cam: Camera, cfg):
+    """The fleet's step over sessions laid on `devices` (session s on
+    devices[s]): step(sts, tss, lefts, rights, gyro, acc, dts, imu_mask, t,
+    valid) -> (sts, tss, outs), with sts and tss the D sessions' MapStates and
+    TrackStates, frame arrays of (D, chunk, ...) (host arrays or tensors, or a
+    list of D such (chunk, ...) arrays; t and imu_mask are read on the host)
+    and `valid` (D, chunk) host bools; outs is one FrameOut a session with
+    `chunk` rows.
+
+    A valid=False slot leaves its session untouched and records the
+    placeholder FrameOut of the session's state at that slot. Each run of
+    consecutive valid slots of a session goes through `slam_step_chunk` on
+    that session's device (one batched front end, one FAST/NMS launch), so a
+    session whose valid slots lead its chunk steps exactly as a lone
+    FusedSlam at the same chunk would. Optional keywords: `sync` reads the
+    per-frame flags (FusedSlam._sync's role), `step_s` accumulates each
+    session's host wall."""
+    devices = [torch.device(d) for d in devices]
+    cams = [cam.to(dev) for dev in devices]
+
+    def read(flags):
+        return flags.tolist()
+
+    def step(sts, tss, lefts, rights, gyro, acc, dts, imu_mask, t, valid, sync=read,
+             step_s=None):
+        valid = np.asarray(valid, bool)
+        t = [_host(t[s]).astype(np.float32) for s in range(len(devices))]
+        mask = [_host(imu_mask[s]) for s in range(len(devices))]
+        sts, tss, outs = list(sts), list(tss), []
+        for s, dev in enumerate(devices):
+            rows, i, c = [], 0, valid.shape[1]
+            t0 = time.perf_counter()
+            while i < c:
+                j = i
+                while j < c and valid[s, j] == valid[s, i]:
+                    j += 1
+                if valid[s, i]:
+                    idx = np.arange(i, j)
+                    stacked = [_rows(x[s], idx, dev)
+                               for x in (lefts, rights, gyro, acc, dts, imu_mask)]
+                    sts[s], tss[s], out, _ = slam_step_chunk(
+                        sts[s], tss[s], *stacked, list(t[s][i:j]), cams[s], cfg, sync,
+                        [bool(mask[s][k].any()) for k in idx])
+                    rows.append(out)
+                else:
+                    pad = _placeholder(sts[s], tss[s])
+                    rows.append(FrameOut(*[torch.stack([x] * (j - i)) for x in pad]))
+                i = j
+            if step_s is not None:
+                step_s[s] += time.perf_counter() - t0
+            outs.append(rows[0] if len(rows) == 1 else FrameOut(
+                *[torch.cat(f) for f in zip(*rows)]))
+        return sts, tss, outs
+
+    return step
+
+
 class MultiSessionSlam:
     """Host wrapper around D concurrent SLAM sessions."""
 
@@ -80,10 +151,14 @@ class MultiSessionSlam:
         self.cams = [cam.to(dev) for dev in self.devices]
         self.maps = [empty_map(cfg.cap, device=dev) for dev in self.devices]
         self.tss = [TrackState.initial(dev) for dev in self.devices]
+        self._step = make_multi_session_step(self.devices, cam, cfg)
         self._pending: list[list] = [[] for _ in range(n_sessions)]
         # one entry a flush: (times (D, c), [FrameOut with c rows] * D, valid (D, c))
         self.outs: list = []
         self._frames = 0
+        # a shape template for the slots of sessions with fewer frames
+        # buffered at dispatch time (their slots run with valid=False)
+        self._template = None
         self.host_syncs = 0  # per-frame flag reads, summed over the sessions
         self.launches = [0] * n_sessions  # step chunks dispatched, per session
         # host wall of each session's steps (their flag reads wait for the device)
@@ -97,7 +172,11 @@ class MultiSessionSlam:
         """Buffer one frame for `session`; dispatches a flush as soon as that
         session holds `chunk` frames."""
         g, a, d, m = pad_imu_window(gyro, acc, dts, self.cfg.max_imu_per_frame)
-        self._pending[session].append((_as_u8(left), _as_u8(right), g, a, d, m, np.float32(t)))
+        frame = (_as_u8(left), _as_u8(right), g, a, d, m, np.float32(t))
+        self._pending[session].append(frame)
+        if self._template is None:
+            self._template = tuple(x.new_zeros(x.shape) if isinstance(x, torch.Tensor)
+                                   else np.zeros_like(x) for x in frame)
         if len(self._pending[session]) >= self.chunk:
             self.flush()
 
@@ -111,34 +190,26 @@ class MultiSessionSlam:
                 torch.cuda.synchronize(dev)
 
     def flush(self):
+        """One fleet step over c = min(chunk, longest pending) slots: each
+        session's first c buffered frames, padded with valid=False slots."""
         c = min(self.chunk, max((len(p) for p in self._pending), default=0))
         if c == 0:
             return
         valid = np.zeros((self.d, c), bool)
-        times = np.zeros((self.d, c), np.float32)
-        outs = []
+        batches = [[] for _ in range(7)]  # per field, one (c, ...) stack a session
         for s, pend in enumerate(self._pending):
             take, self._pending[s] = pend[:c], pend[c:]
             valid[s, :len(take)] = True
-            rows = []
-            if take:
-                dev = self.devices[s]
-                stacked = [_upload([f[i] for f in take], dev) for i in range(6)]
-                ts_ = [f[6] for f in take]
-                times[s, :len(take)] = ts_
-                t0 = time.perf_counter()
-                self.maps[s], self.tss[s], out, _ = slam_step_chunk(
-                    self.maps[s], self.tss[s], *stacked, ts_, self.cams[s], self.cfg,
-                    self._sync, [bool(f[5].any()) for f in take])
-                self.step_s[s] += time.perf_counter() - t0
-                self.launches[s] += 1
-                rows.append(out)
-            if len(take) < c:
-                pad = _placeholder(self.maps[s], self.tss[s])
-                rows.append(FrameOut(*[torch.stack([x] * (c - len(take))) for x in pad]))
-            outs.append(rows[0] if len(rows) == 1 else FrameOut(
-                *[torch.cat(f) for f in zip(*rows)]))
-        self.outs.append((times, outs, valid))
+            slots = take + [self._template] * (c - len(take))
+            for i in range(7):
+                col = [f[i] for f in slots]
+                batches[i].append(torch.stack(col) if isinstance(col[0], torch.Tensor)
+                                  else np.stack(col))
+        self.maps, self.tss, outs = self._step(self.maps, self.tss, *batches, valid,
+                                               sync=self._sync, step_s=self.step_s)
+        for s in range(self.d):
+            self.launches[s] += int(valid[s].any())
+        self.outs.append((np.stack(batches[6]), outs, valid))
         self._frames += int(valid.sum())
 
     def session_state(self, i: int):

@@ -9,7 +9,10 @@ one-rank gloo group), FusedSlam builds and warms up its loop closer, a
 two-session fleet flushes and entry() runs; an EuRoC-format fixture is
 written, loaded (images through the native loader, with PIL unimportable
 where g++ can build it) and one stereo pair is rectified; the port's
-runner scripts import no JAX either."""
+runner scripts import no JAX either. The host-orchestrated SlamSystem tracks
+two frames in both configurations, local_ba_step takes a step, a SlamSystem
+state is carried into another (interop.carry_slam_system), and
+scripts/profile_pipeline_torch.py imports."""
 import re
 import subprocess
 import sys
@@ -43,6 +46,29 @@ for base in (SLICE_CFG, BENCH_CFG):
     slam = FusedSlam(world.cam, cfg, device="cpu")
     out = slam.process_frame(left, right, *world.imu_window(0.0, 0.0), 0.0)
     assert int(out.mode) == MODE_OK and bool(out.is_kf), out
+from orbslam3_tpu_torch.interop import SLAM_SYSTEM_STATE, carry_slam_system, to_numpy_tree
+from orbslam3_tpu_torch.models.local_mapper import local_ba_step
+from orbslam3_tpu_torch.models.slam import FrameResult, SlamSystem
+import torch
+for base in (SLICE_CFG, BENCH_CFG):
+    ss = SlamSystem(world.cam, cfg._replace(use_imu=base.use_imu), device="cpu")
+    r0 = ss.process_frame(left, right, *world.imu_window(0.0, 0.0), 0.0)
+    r1 = ss.process_frame(*world.render_frame(0.1), *world.imu_window(0.0, 0.1), 0.1)
+    assert isinstance(r1, FrameResult) and r0.is_keyframe and r1.state == "Ok", (r0, r1)
+_, ba = local_ba_step(ss.map, ss.cam, torch.tensor(0, dtype=torch.int32), window=2,
+                      max_points=256, iters=1, fixed=0)
+assert ba.q.shape == (2, 4)
+state = {k: getattr(ss, k) for k in SLAM_SYSTEM_STATE}
+state["map"] = to_numpy_tree(state["map"])
+ss2 = SlamSystem(world.cam, cfg, device="cpu")
+vars(ss2).update(carry_slam_system(state, "cpu"))
+assert ss2.last_kf_id == ss.last_kf_id and torch.equal(ss2.map.kf_p, ss.map.kf_p)
+import importlib.util
+spec = importlib.util.spec_from_file_location("profile_pipeline_torch",
+                                              "scripts/profile_pipeline_torch.py")
+prof = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(prof)
+assert "full process_frame" in prof.STAGES
 import os, tempfile
 from orbslam3_tpu_torch.map.checkpoint import load_map, save_map
 from orbslam3_tpu_torch.map.compaction import compact_map
@@ -63,7 +89,8 @@ for name in ("optim.vi_ba", "optim.imu_init", "optim.robust_pose", "map.triangul
              "geometry.se3", "geometry.sim3", "loop.sim3", "loop.vocab", "optim.pose_graph",
              "loop.closer", "parallel.distributed_ba", "utils.logging", "io.euroc",
              "io.rectify", "io.native", "io.euroc_fixture", "viz.html_view", "viz.live",
-             "parallel.multi_session", "parallel.ranks", "entry"):
+             "parallel.multi_session", "parallel.ranks", "entry", "models.slam",
+             "models.local_mapper", "interop"):
     assert "orbslam3_tpu_torch." + name in names, name
 import numpy as np
 from orbslam3_tpu_torch.loop import vocab as vb

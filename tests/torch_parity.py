@@ -145,3 +145,28 @@ def closer_gba_rank(rank, world, st, loop_kw: dict, cam: tuple, anchor: int = 0)
     out, rec = closer._global_ba(st, anchor, Camera.create(*cam))
     return dict(rec={k: rec[k] for k in ("slots", "tiles", "iters", "ranks")},
                 kf_q=out.kf_q.numpy(), kf_p=out.kf_p.numpy(), mp_pos=out.mp_pos.numpy())
+
+
+def jax_slam_system_state(slam) -> dict:
+    """A JAX SlamSystem's state, arrays as numpy and lists copied, in the
+    form interop.carry_slam_system takes."""
+    import jax
+
+    from orbslam3_tpu_torch.interop import SLAM_SYSTEM_STATE
+
+    def host(x):
+        return None if x is None else np.array(x)
+
+    out = {}
+    for k in SLAM_SYSTEM_STATE:
+        v = getattr(slam, k, 0)
+        if k == "map":
+            v = jax.tree.map(np.asarray, v)
+        elif k in ("_kf_gyro", "_kf_acc", "_kf_dts"):
+            v = [np.array(a) for a in v]
+        elif k == "trajectory":
+            v = list(v)
+        elif k in ("q", "p", "v", "bg", "ba", "motion_dq", "motion_dp", "gravity_w"):
+            v = host(v)
+        out[k] = v
+    return out

@@ -171,6 +171,14 @@ Phases (each raises on failure; nothing is caught):
    and device-inclusive milliseconds (CUDA events, the device synchronized
    at the stage's end), one launch a call in the stages that run the front
    end;
+12. scripts/eval_suite_torch.py's runs (EVAL_RUNS: its stereo-inertial mode
+   on seeds 11 and 23, its EuRoC-extrinsics mode on seed 11; 8 s, 160
+   frames at 752x480, chunk 8) in a spawned process beside phases 5b-6f,
+   each held to the JAX record (orbslam3_tpu_torch/data/eval_reference.json,
+   scripts/make_eval_reference.py): the first and last frame's checksums,
+   the IMU's frame within one chunk, ok_frac, one launch a dispatched
+   chunk; ATE, RPE, keyframes, the first departing frame and frames/s
+   printed beside the record;
 7. accuracy of the odometry paths against their JAX references over the
    frames they ran (check_accuracy) and of the session (check_session).
 
@@ -226,6 +234,10 @@ LAUNCHES_PER_FRAME = 1  # one fast_nms_levels launch for the whole pyramid
 # tests, as (SyntheticConfig fields, SlamConfig fields with orb/cap/track as
 # keyword dicts, camera blackout or None); "extrinsics" takes euroc_t_bc()
 SLAM_SYSTEM_FRAMES, SLAM_SYSTEM_SEED = 104, 1
+# phase 12: scripts/eval_suite_torch.py's runs (8 s, chunk 8) on seeds the
+# other phases never run, held to data/eval_reference.json
+# (scripts/make_eval_reference.py records the JAX runs)
+EVAL_RUNS = (("inertial", 11), ("inertial", 23), ("extrinsics", 11))
 _E2E_WORLD = dict(width=384, height=256, fx=240.0, fy=240.0, n_landmarks=600, duration=4.0,
                   cam_hz=10.0, pos_amp=(1.2, 0.8, 0.3))
 _E2E_BIAS = dict(gyro_bias=(0.003, -0.002, 0.004), accel_bias=(0.03, 0.02, -0.04))
@@ -2174,6 +2186,65 @@ def slam_system_phase(card: str, frames) -> dict:
     return dict(full=full, worlds=slam_system_worlds(card, ref["worlds"]))
 
 
+def eval_phase(card: str) -> dict:
+    """Phase 12, in a spawned process beside phases 5b-6f: EVAL_RUNS through
+    scripts/eval_suite_torch.py::run_slam on the card, each held to its JAX
+    record: the same first and last frame, the IMU initialized after a frame
+    within one chunk of the record's, ok_frac >= the record's - 0.05, one
+    FAST/NMS launch a dispatched chunk, corrections within 1 of the record's
+    where the mode closes loops. ATE, RPE, keyframes, the first frame that
+    leaves the record and frames/s are printed beside the record, not held:
+    these noise-free worlds are knife edges (PERF.md section 6)."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import eval_suite_torch as es
+
+    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms
+
+    ref = es.load_reference()
+    out, failed = {}, []
+    for mode, seed in EVAL_RUNS:
+        path = f"eval {mode} seed {seed}"
+        t0 = time.perf_counter()
+        frames = es._get_world(seed, 8.0, mode, workers=2)[2]
+        render_s = time.perf_counter() - t0
+        fast_nms.launches = 0
+        slam, row = es.run_slam(seed, 8.0, mode, chunk=CHUNK, device=DEVICE)
+        launches = fast_nms.launches
+        rec, want = es.port_record(slam, frames), ref["runs"][f"{mode}:{seed}"]
+        dispatches = len(slam.outs)
+        log(f"{path}: ATE {row['ate_m']:.5f} m (JAX {want['ate_m']:.5f}), RPE@20 "
+            f"{row['rpe_m']:.5f} m {row['rpe_rad']:.5f} rad (JAX {want['rpe_m']:.5f} m "
+            f"{want['rpe_rad']:.5f} rad), keyframes {row['keyframes']} (JAX "
+            f"{want['keyframes']}), IMU after frame {rec['imu_init_frame']} (JAX "
+            f"{want['imu_init_frame']}), ok_frac {rec['ok_frac']:.4f} (JAX "
+            f"{want['ok_frac']:.4f}), loops {row['loops']} (JAX {want['loops']})")
+        log(f"{path}: first departure from the record: {es.first_departure(rec, want)}")
+        log(f"{path}: {row['fps']:.3f} frames/s after {es.WARM} warm-up frames, fast_nms "
+            f"launches {launches} over {dispatches} dispatches, rendered in {render_s:.1f} s  "
+            f"[{card}]")
+        if rec["checksum"] != want["checksum"]:
+            failed.append(f"{path}: frame checksums {rec['checksum']}, the record's "
+                          f"{want['checksum']}")
+        got_f, want_f = rec["imu_init_frame"], want["imu_init_frame"]
+        if (got_f is None) != (want_f is None) or (
+                want_f is not None and abs(got_f - want_f) > CHUNK):
+            failed.append(f"{path}: IMU initialized after frame {got_f}, the record's {want_f}")
+        if not rec["ok_frac"] >= want["ok_frac"] - 0.05:
+            failed.append(f"{path}: ok_frac {rec['ok_frac']}, the record's {want['ok_frac']}")
+        if launches != LAUNCHES_PER_FRAME * dispatches or dispatches * CHUNK < rec["n_frames"]:
+            failed.append(f"{path}: fast_nms launched {launches} times in {dispatches} "
+                          f"dispatches over {rec['n_frames']} frames")
+        if want["loops"] is not None and abs(row["loops"] - want["loops"]) > 1:
+            failed.append(f"{path}: {row['loops']} corrections, the record's {want['loops']}")
+        out[f"{mode}:{seed}"] = dict(row, launches=launches, dispatches=dispatches,
+                                     imu_init_frame=got_f, ok_frac=rec["ok_frac"],
+                                     first_departure=es.first_departure(rec, want))
+        del slam
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 def profile_phase(card: str) -> dict:
     """Phase 11 (c): scripts/profile_pipeline_torch.py at full width on the
     card: each stage's host wall and device-inclusive milliseconds; the
@@ -2698,6 +2769,10 @@ def main() -> int:
     # phases 5b and 5c are taken under that load, those before it are not
     revisit_frames = render_revisit_world()
     fixtures = write_euroc_fixtures()
+    # phase 12 renders its own worlds first, so it starts here, beside 5b-6f
+    phase("12 scripts/eval_suite_torch.py's runs, started in a spawned process beside phases "
+          "5b-6f")
+    eval_handle = phase_start("eval_phase", card)
 
     # ---- 5. the long session and the leaves of loop closing; the main run
     # resumed from its checkpoint comes last (a profiler window after the IMU
@@ -2743,6 +2818,8 @@ def main() -> int:
     entries = fleet.pop("entry")
     phase("11 (a), (b) SlamSystem: their results")
     slam_sys = phase_finish(ss_handle, "SlamSystem", timeout_s=900.0)
+    phase("12 scripts/eval_suite_torch.py's runs: their results")
+    evals = phase_finish(eval_handle, "eval", timeout_s=900.0)
     phase("11 (c) scripts/profile_pipeline_torch.py at full width: the stages, host wall and "
           "device-inclusive")
     stages = profile_phase(card)
@@ -2782,6 +2859,7 @@ def main() -> int:
                                  slam_sys["full"]["noise_free"]["launches"],
                              **{f"slam_system_{k}": v["launches"]
                                 for k, v in slam_sys["worlds"].items()},
+                             "eval": sum(v["launches"] for v in evals.values()),
                              "profile_pipeline_process_frame": round(
                                  stages["full process_frame"]["launches"]
                                  * stages["full process_frame"]["calls"])},
@@ -2799,6 +2877,7 @@ def main() -> int:
             k: {f: v[f] for f in ("fps", "ate_m", "ok_frac", "imu_init_frame", "n_maps_created",
                                   "bad_imu_resets", "peak_mib")}
             for k, v in slam_sys["worlds"].items()}, "stages_ms": stages},
+        "eval": evals,
         "library_ms": None, "profile_ms": us_frame / 1e3,
         "earlier_ms_is": "8 one-level launches of this kernel, the call pattern before the "
                          "levels were fused, timed in this run",

@@ -205,7 +205,6 @@ class StepFlags(NamedTuple):
     is_kf: bool  # a keyframe was inserted
     mode: int  # tracker mode after the step
     n_kf: int  # keyframe rows in use after the step
-    n_mp: int  # map-point rows in use before the step's insert
     next_map_id: int  # the atlas's next map id after the step
 
 
@@ -346,9 +345,9 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
     n_active = sm.count_map_keyframes(st, st.active_map)
     mode_out = torch.where(want_init & has_room, i32(MODE_OK), mode)
 
-    f_lost, f_kf, f_cull, f_tracked, n_active_h, mode_h, n_kf_h, n_mp_h, next_map_h = sync(
+    f_lost, f_kf, f_cull, f_tracked, n_active_h, mode_h, n_kf_h, next_map_h = sync(
         torch.stack([lost_timeout.to(I32), is_kf.to(I32), cull_due.to(I32), tracked_ok.to(I32),
-                     n_active, mode_out, st.n_kf, st.n_mp, st.next_map_id]))
+                     n_active, mode_out, st.n_kf, st.next_map_id]))
     lap("decide_and_flag_read")
 
     if f_lost:  # atlas: lost beyond timeout -> reset or new map
@@ -464,7 +463,7 @@ def _slam_step_core(st: sm.MapState, ts: TrackState, left_u8, right_u8, gyro, ac
         rel_p=quat.rotate(quat.conj(q_ref), ts.p - p_ref),
     )
     lap("bookkeeping")
-    return st, ts, out, StepFlags(bool(f_lost), bool(f_kf), mode_h, n_kf_h + bool(f_kf), n_mp_h,
+    return st, ts, out, StepFlags(bool(f_lost), bool(f_kf), mode_h, n_kf_h + bool(f_kf),
                                   next_map_h)
 
 
@@ -573,10 +572,13 @@ class FusedSlam:
         self._frames = 0
         self._last_t = 0.0
         self.imu_initialized = False
-        # host mirrors of device counters, exact after every frame (they come
-        # with the frame's flag read): rows in use, and upper bounds on them
-        # for the capacity check
+        # host mirror of the keyframe rows in use, exact after every frame (it
+        # comes with the frame's flag read)
         self._n_kf = 0
+        # the JAX host's upper bounds on the rows in use, which decide whether
+        # a service round is due for the capacity check: each frame adds the
+        # most one can add, a service round tightens them from the counts of
+        # the round before, a capacity check sets them to the true counts
         self._kf_ub = 0
         self._mp_ub = 0
         # IMU-init refinement phases: re-run the gravity / bias solve as the
@@ -604,6 +606,8 @@ class FusedSlam:
         # this round's mirrors for the next one
         self._next_map_id = 1
         self._nkf_inflight: int | None = None
+        self._nmp_inflight = None  # the point rows, copied to the host without a sync
+        self._snap_inflight_frame = 0
         self._mapid_inflight: int | None = None
         self._multi_map = False  # sticky: archived maps exist
         # the last service round whose mode snapshot was not OK, and the
@@ -729,6 +733,10 @@ class FusedSlam:
             self._mirror(flags)
         self._frames += 1
         self._last_t = float(t)
+        # the most rows a frame can add: one keyframe, its stereo spawns and
+        # triangulated points
+        self._kf_ub += 1
+        self._mp_ub += self.cfg.new_mp_budget + 128
         # host services only while something host-side remains to do
         need_services = (self.loop_closer is not None
                          or (self.cfg.use_imu and not self.imu_initialized)
@@ -746,19 +754,24 @@ class FusedSlam:
         self._mode = flags.mode
         self._n_kf = flags.n_kf
         self._next_map_id = flags.next_map_id
-        # rows in use: exact for keyframes; a keyframe adds at most the
-        # stereo spawn budget plus the triangulated points
-        self._kf_ub = flags.n_kf
-        self._mp_ub = flags.n_mp + (self.cfg.new_mp_budget + 128) * flags.is_kf
 
     def _compact_due(self) -> bool:
-        """The row bounds reach the capacity margin; a buffered frame counts
-        for the most rows it can add (one keyframe and its points)."""
+        """The row bounds reach the capacity margin."""
         cap = self.cfg.cap
-        n = len(self._pending)
-        return (self._kf_ub + n >= cap.max_kf - 4
-                or self._mp_ub + n * (self.cfg.new_mp_budget + 128)
-                >= cap.max_mp - 2 * self.cfg.new_mp_budget)
+        return (self._kf_ub >= cap.max_kf - 4
+                or self._mp_ub >= cap.max_mp - 2 * self.cfg.new_mp_budget)
+
+    def _snapshot(self, x: torch.Tensor):
+        """A copy of a device scalar that the next service round reads: on
+        the card an asynchronous copy into pinned memory and its event, so
+        taking it waits for nothing."""
+        if self.device.type != "cuda":
+            return x.clone(), None
+        host = torch.empty((), dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
 
     def _host_services(self, final: bool = False):
         """Rare host-side work: IMU initialization until it succeeds, then
@@ -773,6 +786,8 @@ class FusedSlam:
         cfg = self.cfg
         self._service_round += 1
         snap, self._nkf_inflight = self._nkf_inflight, self._n_kf
+        snap_mp, self._nmp_inflight = self._nmp_inflight, self._snapshot(self.map.n_mp)
+        snap_frame, self._snap_inflight_frame = self._snap_inflight_frame, self._frames
         snap_mm, self._mapid_inflight = self._mapid_inflight, self._next_map_id
         snap_mode, self._mode_inflight = self._mode_inflight, self._mode
         if snap_mode is not None:
@@ -783,6 +798,15 @@ class FusedSlam:
             if snap_mode == MODE_RECENTLY_LOST:
                 self._reloc_until = self._service_round + 4
         n_kf = self._n_kf if final or snap is None else snap
+        if snap is not None and snap_mp is not None:
+            # the round before's counts plus the most rows a frame can add
+            # for each frame since stay upper bounds
+            host, ev = snap_mp
+            if ev is not None:
+                ev.synchronize()
+            lag = self._frames - snap_frame
+            self._kf_ub = min(self._kf_ub, snap + lag)
+            self._mp_ub = min(self._mp_ub, int(host) + lag * (cfg.new_mp_budget + 128))
         if snap_mm is not None:
             self._multi_map = self._multi_map or snap_mm > 1
         if self.loop_closer is not None and self.imu_initialized:
@@ -880,7 +904,7 @@ class FusedSlam:
         # only rows already serviced count as seen: the keyframes newer than
         # the last round's count still get their service next round
         self._n_kf_seen = int((km[:self._n_kf_seen] >= 0).sum())
-        self._nkf_inflight = None  # it counted pre-compaction rows
+        self._nkf_inflight = self._nmp_inflight = None  # they counted pre-compaction rows
         self._kf_remaps.append(km)
         self.compactions += 1
         self._n_kf = self._kf_ub = n_kf

@@ -117,7 +117,8 @@ def test_compaction_fires_in_both_packages(runs):
     assert t["mp_evictions"] == j["mp_evictions"] and t["n_kf"] == j["n_kf"] < MAX_KF
     slam = t["slam"]
     assert len(slam._kf_remaps) == slam.compactions
-    assert slam._n_kf == slam._kf_ub == int(slam.map.n_kf)
+    # the exact keyframe count, and the JAX host's upper bound on it
+    assert slam._n_kf == int(slam.map.n_kf) <= slam._kf_ub == runs["jax4"]["slam"]._kf_ub
     assert int(slam.map.kf_valid.sum()) == int(slam.map.n_kf)  # compacted: no dead row in use
 
 

@@ -12,7 +12,9 @@ where g++ can build it) and one stereo pair is rectified; the port's
 runner scripts import no JAX either. The host-orchestrated SlamSystem tracks
 two frames in both configurations, local_ba_step takes a step, a SlamSystem
 state is carried into another (interop.carry_slam_system), and
-scripts/profile_pipeline_torch.py imports."""
+scripts/profile_pipeline_torch.py imports; scripts/view_checkpoint_torch.py
+renders a checkpoint, and scripts/eval_suite_torch.py reads the JAX record
+(data/eval_reference.json) and builds its table."""
 import re
 import subprocess
 import sys
@@ -78,9 +80,24 @@ out = slam.process_frame(*world.render_frame(0.1), *world.imu_window(0.0, 0.1), 
 assert out.p.shape == (2, 3) and out.mode.tolist() == [MODE_OK, MODE_OK], out
 st, kf_map, mp_map = compact_map(slam.map)
 assert int(st.n_kf) == int(slam.map.kf_valid.sum()) >= 1 and int(kf_map[0]) == 0
+def script(name):
+    spec = importlib.util.spec_from_file_location(name, f"scripts/{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 with tempfile.TemporaryDirectory() as d:
     save_map(os.path.join(d, "m.npz"), slam.map, slam.ts)
     m2, ts2 = load_map(os.path.join(d, "m.npz"), with_track_state=True, device="cpu")
+    assert script("view_checkpoint_torch").main([os.path.join(d, "m.npz"),
+                                                 os.path.join(d, "m.html"), "--device", "cpu"]) == 0
+    assert '"kf": [[' in open(os.path.join(d, "m.html")).read()
+es = script("eval_suite_torch")
+ref = es.load_reference()
+assert ref["small"]["n_frames"] == 32 and len(ref["runs"]) >= 1
+rec = es.run_record([(left, right)], [MODE_OK], [1], [0], None, [])
+assert es.first_departure(rec, rec) == "none" and len(rec["checksum"]["first"]) == 16
+assert "| Stereo (visual only) |" in es.table([dict(mode="stereo", ate_m=0.1, rpe_m=0.01,
+    rpe_rad=0.001, fps=2.0, imu_init=None, loops=None)], ["stereo"], 1, 8.0, 8, "cpu")
 assert int(m2.n_kf) == int(slam.map.n_kf) and bool((m2.kf_p == slam.map.kf_p).all())
 again = FusedSlam.from_state(world.cam, cfg, m2, ts2, chunk=2, device="cpu")
 assert again._n_kf == int(slam.map.n_kf)

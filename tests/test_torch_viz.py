@@ -4,7 +4,10 @@ port's MapState equals the JAX copy's of the same map as numpy arrays
 and a live page, `save_html_view` writes the same file, and `LiveViewer`
 serves its page and one published snapshot on a localhost port. Also
 scripts/run_synthetic_torch.py on the CPU: its artifacts written, the
-checkpoint loads back, the HTML embeds the run's map."""
+checkpoint loads back, the HTML embeds the run's map. And
+scripts/view_checkpoint_torch.py on the CPU: from a checkpoint saved by the
+port and one saved by the JAX package it writes pages that carry the same
+points and keyframes, equal to the page scripts/view_checkpoint.py writes."""
 import json
 import os
 import sys
@@ -98,3 +101,39 @@ def test_run_synthetic_torch(tmp_path):
     m = load_map(str(tmp_path / "checkpoint.npz"), device="cpu")
     assert int(m.n_kf) == out["keyframes"]
     assert f'"points": [[' in open(tmp_path / "map.html").read()
+
+
+def _page_data(path) -> dict:
+    text = open(path).read()
+    return json.loads(text.split("const DATA = ", 1)[1].split(";\n", 1)[0])
+
+
+def test_view_checkpoint_torch(scene, tmp_path, monkeypatch):
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import view_checkpoint as jview
+    import view_checkpoint_torch as tview
+
+    from orbslam3_tpu.map import checkpoint as jckpt
+    from orbslam3_tpu_torch.map import checkpoint as tckpt
+
+    st, _, traj, _ = scene
+    port_ckpt, jax_ckpt = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    tckpt.save_map(port_ckpt, st)
+    jckpt.save_map(jax_ckpt, jckpt.load_map(port_ckpt))
+    tum = tmp_path / "traj.tum"
+    np.savetxt(tum, np.column_stack([np.arange(len(traj)), traj, np.tile([0, 0, 0, 1],
+                                                                          (len(traj), 1))]))
+    pages = {}
+    for name, ckpt in (("port", port_ckpt), ("jax", jax_ckpt)):
+        pages[name] = str(tmp_path / f"{name}.html")
+        assert tview.main([ckpt, pages[name], str(tum), "--device", "cpu"]) == 0
+    monkeypatch.setattr(sys, "argv", ["view_checkpoint.py", jax_ckpt,
+                                      str(tmp_path / "ref.html"), str(tum)])
+    assert not jview.main()
+    port, jax_saved, ref = (_page_data(p) for p in (pages["port"], pages["jax"],
+                                                   tmp_path / "ref.html"))
+    assert len(port["points"]) == len(jax_saved["points"]) == int(st.mp_valid.sum())
+    assert len(port["kf"]) == len(jax_saved["kf"]) == int(st.kf_valid.sum())
+    assert len(port["traj"]) == len(traj)
+    assert open(pages["jax"]).read() == open(tmp_path / "ref.html").read()
+    assert port == ref

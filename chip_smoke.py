@@ -171,14 +171,32 @@ Phases (each raises on failure; nothing is caught):
    and device-inclusive milliseconds (CUDA events, the device synchronized
    at the stage's end), one launch a call in the stages that run the front
    end;
-12. scripts/eval_suite_torch.py's runs (EVAL_RUNS: its stereo-inertial mode
-   on seeds 11 and 23, its EuRoC-extrinsics mode on seed 11; 8 s, 160
+12. scripts/eval_suite_torch.py's runs (EVAL_RUNS: its stereo-inertial and
+   its EuRoC-extrinsics mode on seed 11; 8 s, 160
    frames at 752x480, chunk 8) in a spawned process beside phases 5b-6f,
    each held to the JAX record (orbslam3_tpu_torch/data/eval_reference.json,
    scripts/make_eval_reference.py): the first and last frame's checksums,
    the IMU's frame within one chunk, ok_frac, one launch a dispatched
    chunk; ATE, RPE, keyframes, the first departing frame and frames/s
    printed beside the record;
+13. the JAX package's behaviour scenarios (scripts/scenarios_torch.py) in two
+   spawned processes beside phases 4b-6f, each FusedSlam built with no
+   `device` and one FAST/NMS launch a frame: the worlds, configurations and
+   events of its slow end-to-end tests (a 0.7 s blackout bridged on IMU
+   keyframes, a poisoned tracker recovered through the RANSAC seed, a
+   static start reset for a bad IMU, the time-phased IMU refinement, a
+   hover's keyframe culling, a full 4-row keyframe array, a 16-row map that
+   compacts, and its world at LONG_RUN_EVICTS_MAX_MP map points, where stale
+   points are evicted) and the two recovery events on the bench world at
+   full width under BENCH_CFG (120 frames, after the IMU initializes), each
+   held to its JAX test's bars and to the structural facts of its JAX record
+   (orbslam3_tpu_torch/data/scenario_reference.json,
+   scripts/make_scenario_reference.py: the atlas size, bad-IMU resets and
+   the IMU's frame, refines, keyframes in the blackout, compactions and
+   evictions, ok_frac, ATE by the band rule), the first frame that departs
+   from the record printed; then the synthesized ORBvoc-scale vocabulary
+   (k=10, L=6, 1.11 M nodes) loaded onto the card and 1024 descriptors
+   quantized to the record's leaf ids, both timed by CUDA events;
 7. accuracy of the odometry paths against their JAX references over the
    frames they ran (check_accuracy) and of the session (check_session).
 
@@ -237,7 +255,12 @@ SLAM_SYSTEM_FRAMES, SLAM_SYSTEM_SEED = 104, 1
 # phase 12: scripts/eval_suite_torch.py's runs (8 s, chunk 8) on seeds the
 # other phases never run, held to data/eval_reference.json
 # (scripts/make_eval_reference.py records the JAX runs)
-EVAL_RUNS = (("inertial", 11), ("inertial", 23), ("extrinsics", 11))
+# (two runs: a third does not fit beside phase 13 within the script's time limit)
+EVAL_RUNS = (("inertial", 11), ("extrinsics", 11))
+# phase 13: the scenarios of scripts/scenarios_torch.py and its ORBvoc-scale
+# vocabulary, held to data/scenario_reference.json (scripts/
+# make_scenario_reference.py records the JAX runs; the scenarios' worlds and
+# configurations live in scenarios_torch.SCENARIOS)
 _E2E_WORLD = dict(width=384, height=256, fx=240.0, fy=240.0, n_landmarks=600, duration=4.0,
                   cam_hz=10.0, pos_amp=(1.2, 0.8, 0.3))
 _E2E_BIAS = dict(gyro_bias=(0.003, -0.002, 0.004), accel_bias=(0.03, 0.02, -0.04))
@@ -2245,6 +2268,116 @@ def eval_phase(card: str) -> dict:
     return out
 
 
+def scenario_phase(card: str, names: tuple, bench_frames=None) -> dict:
+    """Phase 13, in a spawned process beside phases 4b-6f: the scenarios
+    `names` of scripts/scenarios_torch.py (the worlds, configurations and
+    events of the JAX package's slow end-to-end tests, and the two full-width
+    recovery runs on the bench world under BENCH_CFG, which take
+    `bench_frames`, the bench world's frames this script rendered), the
+    others rendered first in one pool of worker processes; each FusedSlam
+    built with no `device` (it must pick the card), each run held to the JAX
+    test's own bars and to the structural facts of its JAX record
+    (data/scenario_reference.json, scripts/make_scenario_reference.py;
+    scenarios_torch.holds), with one FAST/NMS launch a frame (the counter set
+    to 0 just before each run and read just after); the first frame that
+    departs from the record and frames/s printed. With scenarios_torch.ORBVOC
+    among `names`, the ORBvoc-scale vocabulary: the synthesized k=10, L=6
+    DBoW2 text loaded onto the card and 1024 descriptors quantized, load and
+    quantize times by CUDA events, the leaf ids equal to the record's."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import scenarios_torch as sc
+
+    from orbslam3_tpu_torch.ops.fast_cuda import fast_nms
+
+    ref = sc.load_reference()["scenarios"]
+    on_card = DEVICE == "cuda"
+    out, failed = {}, []
+    runs = [n for n in names if n != sc.ORBVOC]
+    t0 = time.perf_counter()
+    rendered = sc.render_many(runs, workers=4, bench_frames=bench_frames)
+    log(f"scenarios {runs}: frames ready in {time.perf_counter() - t0:.1f} s")
+    for name in runs:
+        path = f"scenario {name} ({sc.SCENARIOS[name]['source']})"
+        t0 = time.perf_counter()
+        fast_nms.launches = 0
+        slam, rec, world = sc.run_port(name, device=None if on_card else DEVICE,
+                                       frames=rendered.pop(name))
+        sync()
+        launches = fast_nms.launches
+        wall = time.perf_counter() - t0
+        want = ref[name]
+        checks = sc.holds(name, rec, want, world.cfg)
+        checks.append((f"{LAUNCHES_PER_FRAME} FAST/NMS launch a frame",
+                       launches == LAUNCHES_PER_FRAME * rec["frames"]))
+        if on_card:
+            checks.append(("FusedSlam without a device argument on the card",
+                           slam.device.type == "cuda"))
+        bad = [c for c, ok in checks if not ok]
+        failed += [f"{name}: {c}" for c in bad]
+        log(f"{path}: {rec['frames']} frames, ATE {rec['ate_m']:.5f} m (JAX {want['ate_m']:.5f}), "
+            f"ok_frac {rec['ok_frac']:.4f} (JAX {want['ok_frac']:.4f}), IMU after frame "
+            f"{rec['imu_init_frame']} (JAX {want['imu_init_frame']}), refines "
+            f"{rec['imu_refines']} ({want['imu_refines']}), bad-IMU resets at frames "
+            f"{rec['reset_frames']} ({want['reset_frames']}), compactions {rec['compactions']} "
+            f"({want['compactions']}), evictions kf/mp/map {rec['kf_evictions']}/"
+            f"{rec['mp_evictions']}/{rec['map_evictions']} ({want['kf_evictions']}/"
+            f"{want['mp_evictions']}/{want['map_evictions']}), n_kf {rec['n_kf']} live "
+            f"{rec['n_kf_valid']} ({want['n_kf']}, {want['n_kf_valid']}), next_map_id "
+            f"{rec['next_map_id']} ({want['next_map_id']})"
+            + (f", keyframes in the blackout {rec['blackout_kfs']} ({want['blackout_kfs']})"
+               if "blackout_kfs" in rec else ""))
+        log(f"{path}: first departure from the JAX record: {sc.first_departure(rec, want)}")
+        log(f"{path}: {rec['frames'] / wall:.3f} frames/s over the run, fast_nms launches "
+            f"{launches}  [{card}]")
+        log(f"{path}: {len(checks) - len(bad)} of {len(checks)} holds met"
+            + (f"; FAILED {bad}" if bad else ""))
+        out[name] = {k: rec[k] for k in ("frames", "ate_m", "ok_frac", "imu_init_frame",
+                                          "imu_refines", "bad_imu_resets", "compactions",
+                                          "kf_evictions", "mp_evictions", "map_evictions",
+                                          "next_map_id")}
+        out[name].update(launches=launches, fps=rec["frames"] / wall,
+                         first_departure=sc.first_departure(rec, want))
+        del slam
+
+    def cuda_events(fn):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = fn()
+        e1.record()
+        e1.synchronize()
+        return res, e0.elapsed_time(e1)
+
+    launches = sum(v["launches"] for v in out.values())
+    name = sc.ORBVOC
+    if name in names:
+        with tempfile.TemporaryDirectory() as d:
+            voc_path = os.path.join(d, "orbvoc_synth.txt")
+            t0 = time.perf_counter()
+            queries = sc.orbvoc_text(voc_path)
+            write_s = time.perf_counter() - t0
+            rec = sc.orbvoc_port(voc_path, queries, DEVICE,
+                                 timer=cuda_events if on_card else None)
+        checks = sc.orbvoc_holds(rec, ref[name])
+        bad = [c for c, ok in checks if not ok]
+        failed += [f"{name}: {c}" for c in bad]
+        clock = "CUDA events" if on_card else "host clock"
+        log(f"scenario {name}: {rec['n_leaves']} leaves, text written in {write_s:.1f} s, "
+            f"load_dbow2_text onto {DEVICE} {rec['load_ms']:.1f} ms, quantize of "
+            f"{sc.ORBVOC_QUERIES} descriptors {rec['quantize_ms']:.3f} ms ({clock}), "
+            f"self-score {rec['self_score']:.6f}  [{card}]")
+        log(f"scenario {name}: {len(checks) - len(bad)} of {len(checks)} holds met"
+            + (f"; FAILED {bad}" if bad else ""))
+        out[name] = {k: rec[k] for k in ("load_ms", "quantize_ms", "self_score")}
+    if failed:
+        raise AssertionError("; ".join(failed))
+    out["launches"] = launches
+    return out
+
+
 def profile_phase(card: str) -> dict:
     """Phase 11 (c): scripts/profile_pipeline_torch.py at full width on the
     card: each stage's host wall and device-inclusive milliseconds; the
@@ -2761,6 +2894,17 @@ def main() -> int:
     records[("stereo-inertial", None)] = accuracy(vi, gt_p, n)
     log("stereo-inertial, noise-free against the reference: " + first_divergence(vi, ref_vi))
 
+    # phase 13 in two spawned processes from here on: the small worlds, and the
+    # full-width runs (on this world's frames) with the ORBvoc-scale vocabulary
+    import scenarios_torch as sc
+
+    phase("13 scripts/scenarios_torch.py's scenarios, started in two spawned processes beside "
+          "phases 4b-6f")
+    full = tuple(n for n in sc.RUNS if sc.SCENARIOS[n]["world"] == "bench")
+    scenario_handles = [
+        phase_start("scenario_phase", card, tuple(n for n in sc.RUNS if n not in full)),
+        phase_start("scenario_phase", card, full + (sc.ORBVOC,),
+                    frames[:max(sc.SCENARIOS[n]["frames"] for n in full)])]
     phase("4b (a) the same frames with the loop closer at chunk=8; compact_map at full capacity")
     launches_chunk, fps_chunk, warm_a = loop_bench_run(world, *main_frames, vi, fps, card,
                                                        ref_loop["bench"])
@@ -2820,6 +2964,13 @@ def main() -> int:
     slam_sys = phase_finish(ss_handle, "SlamSystem", timeout_s=900.0)
     phase("12 scripts/eval_suite_torch.py's runs: their results")
     evals = phase_finish(eval_handle, "eval", timeout_s=900.0)
+    phase("13 scripts/scenarios_torch.py's scenarios: their results")
+    scenarios = {}
+    for handle, tag in zip(scenario_handles, ("scenarios, small worlds",
+                                              "scenarios, full width")):
+        part = phase_finish(handle, tag, timeout_s=900.0)
+        scenarios["launches"] = scenarios.get("launches", 0) + part.pop("launches")
+        scenarios.update(part)
     phase("11 (c) scripts/profile_pipeline_torch.py at full width: the stages, host wall and "
           "device-inclusive")
     stages = profile_phase(card)
@@ -2860,6 +3011,7 @@ def main() -> int:
                              **{f"slam_system_{k}": v["launches"]
                                 for k, v in slam_sys["worlds"].items()},
                              "eval": sum(v["launches"] for v in evals.values()),
+                             "scenarios": scenarios.pop("launches"),
                              "profile_pipeline_process_frame": round(
                                  stages["full process_frame"]["launches"]
                                  * stages["full process_frame"]["calls"])},
@@ -2877,7 +3029,7 @@ def main() -> int:
             k: {f: v[f] for f in ("fps", "ate_m", "ok_frac", "imu_init_frame", "n_maps_created",
                                   "bad_imu_resets", "peak_mib")}
             for k, v in slam_sys["worlds"].items()}, "stages_ms": stages},
-        "eval": evals,
+        "eval": evals, "scenarios": scenarios,
         "library_ms": None, "profile_ms": us_frame / 1e3,
         "earlier_ms_is": "8 one-level launches of this kernel, the call pattern before the "
                          "levels were fused, timed in this run",

@@ -14,7 +14,10 @@ two frames in both configurations, local_ba_step takes a step, a SlamSystem
 state is carried into another (interop.carry_slam_system), and
 scripts/profile_pipeline_torch.py imports; scripts/view_checkpoint_torch.py
 renders a checkpoint, and scripts/eval_suite_torch.py reads the JAX record
-(data/eval_reference.json) and builds its table."""
+(data/eval_reference.json) and builds its table; scripts/scenarios_torch.py
+reads its JAX record (data/scenario_reference.json), poisons a tracker
+through the port's API and holds a record, and chip_smoke.py (phase 13
+among its phases) imports."""
 import re
 import subprocess
 import sys
@@ -98,6 +101,22 @@ rec = es.run_record([(left, right)], [MODE_OK], [1], [0], None, [])
 assert es.first_departure(rec, rec) == "none" and len(rec["checksum"]["first"]) == 16
 assert "| Stereo (visual only) |" in es.table([dict(mode="stereo", ate_m=0.1, rpe_m=0.01,
     rpe_rad=0.001, fps=2.0, imu_init=None, loops=None)], ["stereo"], 1, 8.0, 8, "cpu")
+sc = script("scenarios_torch")
+scen = sc.load_reference()["scenarios"]
+assert set(sc.RUNS) | {sc.ORBVOC} == set(scen)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+assert callable(smoke.scenario_phase)
+from orbslam3_tpu_torch.geometry import quat
+sw, scfg, stimes = sc.build(sc.port_pkg(), "poisoned_ransac")
+spoil = FusedSlam(sw.cam, scfg, service_every=4, device="cpu")
+q0 = spoil.ts.q.clone()
+sc.poison(spoil, lambda x: torch.tensor(x, dtype=torch.float32), quat)
+assert not torch.equal(spoil.ts.q, q0) and torch.equal(
+    spoil.ts.motion_dp, torch.tensor([0.5, 0.5, -0.3]))
+assert all(ok for _, ok in sc.holds("kf_capacity_guard", scen["kf_capacity_guard"],
+                                    scen["kf_capacity_guard"], None))
 assert int(m2.n_kf) == int(slam.map.n_kf) and bool((m2.kf_p == slam.map.kf_p).all())
 again = FusedSlam.from_state(world.cam, cfg, m2, ts2, chunk=2, device="cpu")
 assert again._n_kf == int(slam.map.n_kf)

@@ -1,0 +1,9 @@
+"""device_idle (%): share of the traced window in which no kernel, copy or
+set ran on the device (the union of the trace's device intervals). Moves
+tracked_fps."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)

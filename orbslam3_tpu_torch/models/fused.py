@@ -600,6 +600,8 @@ class FusedSlam:
         self._service_round = 0
         self.host_syncs = 0  # explicit device->host reads (see _sync)
         self.timing: dict[str, list] = {}
+        self.spans: list | None = None  # the span hook's record (trace_spans); None while off
+        self._span_frame = 0  # the frame whose call records the spans
         # the JAX host acts on snapshots one service round old: the keyframe
         # count (keyframes are serviced one round late), the atlas size
         # (whether archived maps exist) and the tracker mode; these hold
@@ -633,36 +635,74 @@ class FusedSlam:
     def _sync(self, flags):
         """Read a small device tensor to the host: one device sync."""
         self.host_syncs += 1
-        return flags.tolist()
+        return self._wait(flags.tolist)
+
+    def _wait(self, read):
+        """`read()`, a call that blocks until the device is done, under the
+        "sync_wait" timer."""
+        t0 = time.perf_counter()
+        out = read()
+        self._record("sync_wait", t0, time.perf_counter())
+        return out
 
     def _tic(self):
         return time.perf_counter()
 
     def _toc(self, name: str, t0: float):
-        cell = self.timing.setdefault(name, [0.0, 0])
-        cell[0] += time.perf_counter() - t0
-        cell[1] += 1
+        self._record(name, t0, time.perf_counter())
 
     def _lap(self, stage: str):
         """End of a stage of the step: its host time since the last lap."""
         now = time.perf_counter()
-        cell = self.timing.setdefault("step." + stage, [0.0, 0])
-        cell[0] += now - self._lap_t
-        cell[1] += 1
+        self._record("step." + stage, self._lap_t, now)
         self._lap_t = now
+
+    def _record(self, name: str, t0: float, t1: float, calls: int = 1):
+        """Add the interval [t0, t1] (time.perf_counter seconds) to
+        timing[name]; with the span hook on, keep it as a span too."""
+        cell = self.timing.setdefault(name, [0.0, 0])
+        cell[0] += t1 - t0
+        cell[1] += calls
+        if self.spans is not None:
+            self.spans.append((name, self._span_frame, round(t0 * 1e9), round(t1 * 1e9)))
+
+    def trace_spans(self, on: bool = True) -> list | None:
+        """Turn the span hook on (`spans` becomes a new empty list) or off
+        (`spans` becomes None; off is the default). See timing_report()."""
+        self.spans = [] if on else None
+        return self.spans
 
     def timing_report(self) -> dict:
         """Per-stage host wall time: {stage: {total_s, calls, mean_ms}}.
         "step" is the whole per-frame step and "step.<stage>" its parts in
-        order, each counted from the end of the one before it (their totals
-        add up to it; "step.bookkeeping" is the rest of the step after the
-        last named stage, "step.chunk_outputs" the stacking of a chunk's
-        outputs, once a chunk). The device runs ahead of the host, so device
-        time lands in the stage that next waits for it
-        ("step.decide_and_flag_read" holds the per-frame flag read; "imu_init"
-        and "imu_refine" hold their own reads). With a loop closer,
-        "loop_service" / "loop_correct" are its per-keyframe services and
-        "loop.<stage>" the closer's own stages inside them."""
+        order, each counted from the end of the one before it; "step" ends
+        at its last part, so their totals add up to it ("step.bookkeeping"
+        is the rest of the step after the last named stage,
+        "step.chunk_outputs" the stacking of a chunk's outputs, once a
+        chunk). The device runs ahead of the host, so device time lands in
+        the stage that next waits for it ("step.decide_and_flag_read" holds
+        the per-frame flag read; "imu_init" and "imu_refine" hold their own
+        reads). "sync_wait" is the host blocked on the device: each read of
+        `_sync` (one per `host_syncs`), the keyframe-table copy of an IMU
+        init or refine, and a service round's wait for the point-count
+        snapshot of the round before. Each wait lies inside the stage or
+        timer that read, and no "step." name holds it, so no sum of stages
+        counts it twice. With a loop closer, "loop_service" / "loop_correct"
+        are its per-keyframe services and "loop.<stage>" the closer's own
+        stages inside them.
+
+        The span hook (`trace_spans(True)`, off by default) keeps every
+        update of `timing` as a span in `spans`: (name, frame, t0_ns, t1_ns),
+        the name a `timing` key, the frame the index of the frame whose
+        `process_frame` call recorded it (a chunk's spans carry its first
+        frame; at chunk > 1 "step" is one span a dispatch while its calls
+        count frames), the stamps time.perf_counter's in integer
+        nanoseconds (the clock of time.perf_counter_ns). Spans of one frame
+        nest by time: the "step." spans tile "step", and a "sync_wait" lies
+        inside the span that read. The spans' durations add up to the
+        `timing` totals recorded while the hook was on. An operator may read
+        `spans`, or clear it between two calls, at any time; the list grows
+        by about twenty spans a frame until then."""
         cells = dict(self.timing)
         if self.loop_closer is not None:
             cells.update(self.loop_closer.timing)
@@ -712,11 +752,12 @@ class FusedSlam:
 
     def process_frame(self, left, right, gyro, acc, dts, t: float):
         t0 = self._tic()
+        self._span_frame = self._frames
         g, a, d, m = self._pad_imu(gyro, acc, dts)
         l_u8, r_u8 = _as_u8(left), _as_u8(right)
         out = None
         if self.chunk > 1:
-            self._pending.append((l_u8, r_u8, g, a, d, m, np.float32(t)))
+            self._pending.append((l_u8, r_u8, g, a, d, m, np.float32(t), self._frames))
             if len(self._pending) >= self.chunk:
                 out = self.flush()
         else:
@@ -727,7 +768,7 @@ class FusedSlam:
             self.map, self.ts, out, flags = _slam_step_core(
                 self.map, self.ts, *args, np.float32(t), self.cam, self.cfg, self._sync,
                 imu_ok=self.imu_initialized, have_imu_host=bool(m.any()), lap=self._lap)
-            self._toc("step", t0)
+            self._record("step", t0, self._lap_t)
             self.outs.append((t, out))
             self._out_epochs.append(len(self._kf_remaps))
             self._mirror(flags)
@@ -803,7 +844,7 @@ class FusedSlam:
             # for each frame since stay upper bounds
             host, ev = snap_mp
             if ev is not None:
-                ev.synchronize()
+                self._wait(ev.synchronize)
             lag = self._frames - snap_frame
             self._kf_ub = min(self._kf_ub, snap + lag)
             self._mp_ub = min(self._mp_ub, int(host) + lag * (cfg.new_mp_budget + 128))
@@ -985,7 +1026,7 @@ class FusedSlam:
         table = torch.cat([torch.stack([c[:n_kf].to(f64) for c in cols], dim=1),
                            m.kf_p[:n_kf].to(f64), m.active_map.to(f64).expand(n_kf, 1)], dim=1)
         self.host_syncs += 1
-        tab = table.cpu().numpy()
+        tab = self._wait(table.cpu).numpy()
         return dict(valid=tab[:, 0] > 0, map_id=tab[:, 1].astype(np.int64),
                     inliers=tab[:, 2].astype(np.int64), time=tab[:, 3].astype(np.float32),
                     dt=tab[:, 4].astype(np.float32), p=tab[:, 5:8].astype(np.float32),
@@ -1146,6 +1187,7 @@ class FusedSlam:
             return None
         t0 = self._tic()
         batch, self._pending = self._pending, []
+        frame, self._span_frame = self._span_frame, batch[0][7]
         dev = self.device
         stacked = [_upload([b[i] for b in batch], dev) for i in range(6)]
         ts_ = [b[6] for b in batch]
@@ -1156,13 +1198,12 @@ class FusedSlam:
             [bool(b[5].any()) for b in batch], imu_ok=self.imu_initialized, lap=self._lap)
         # the chunk's frames share its time: "step" stays a per-frame figure
         # and its stages go on adding up to it
-        cell = self.timing.setdefault("step", [0.0, 0])
-        cell[0] += time.perf_counter() - t0
-        cell[1] += len(batch)
+        self._record("step", t0, self._lap_t, calls=len(batch))
         self._toc("dispatch_chunk", t0)
         self.outs.append(([float(t) for t in ts_], outs))
         self._out_epochs.append(len(self._kf_remaps))
         self._mirror(flags[-1])
+        self._span_frame = frame
         return outs
 
     def finalize(self):

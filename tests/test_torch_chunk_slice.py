@@ -11,7 +11,14 @@ FusedSlam(chunk=4): the IMU initializes in the same service round, the same
 number of compaction passes with the same keyframe rows left after each, the
 same evictions, per-frame modes equal, corrected trajectories within 1 cm,
 the port's ATE under 0.06 m; one flag read a frame plus the rare services'
-reads."""
+reads. The port runs with its span hook on (`trace_spans`), which keeps one
+span per update of `timing` with the same names and counts (at chunk 4
+"step" is one span a dispatch); every "step." span lies inside the "step"
+span of its frame and they tile it, the spans' durations add up to the
+`timing` totals, and each host sync is one "sync_wait" span inside the span
+that read (tests/test_torch_stage_spans.py holds the hook off)."""
+from collections import Counter, defaultdict
+
 import numpy as np
 import pytest
 import torch
@@ -54,6 +61,8 @@ def runs():
     systems += [(f"torch{c}", tfused.FusedSlam(port_camera(world.cam), t_cfg, chunk=c,
                                                service_every=SERVICE_EVERY, device="cpu"))
                 for c in (1, 4, 3)]
+    for _, slam in systems[1:]:
+        slam.trace_spans(True)
     out = {}
     for name, slam in systems:
         n_kf_after = []
@@ -166,10 +175,80 @@ def test_host_reads_stay_one_a_frame(runs):
         rounds = slam.timing["compaction"][1]
         extra = slam.host_syncs - n
         assert 0 < extra <= 2 * attempts + rounds + 3 * slam.compactions, (name, extra)
+        # "step" closes at its last stage: the stages add up to it exactly
         parts = sum(v[0] for k, v in slam.timing.items() if k.startswith("step."))
-        assert abs(parts - slam.timing["step"][0]) < 1e-3 * n, (name, parts,
-                                                               slam.timing["step"][0])
+        assert parts == pytest.approx(slam.timing["step"][0], rel=1e-9), (name, parts)
     chunked = runs["torch4"]["slam"].timing_report()
     assert chunked["step.chunk_outputs"]["calls"] == n // 4
     assert chunked["step.frontend"]["calls"] == chunked["dispatch_chunk"]["calls"] == n // 4
     assert runs["torch4"]["slam"].host_syncs == runs["torch1"]["slam"].host_syncs
+
+
+SPAN_CHUNKS = [1, 4]
+
+
+@pytest.mark.parametrize("chunk", SPAN_CHUNKS)
+def test_one_span_per_timing_update(runs, chunk):
+    slam, n = runs[f"torch{chunk}"]["slam"], runs["n"]
+    assert slam.imu_initialized and slam.compactions > 0
+    counts = Counter(s[0] for s in slam.spans)
+    calls = {k: v[1] for k, v in slam.timing.items()}
+    assert set(counts) == set(calls)
+    assert calls["step"] == n
+    if chunk > 1:
+        # one "step" span a dispatch, carrying the chunk's first frame
+        assert counts.pop("step") == calls.pop("step") // chunk == calls["dispatch_chunk"]
+        assert sorted(s[1] for s in slam.spans if s[0] == "step") == list(range(0, n, chunk))
+    assert counts == calls
+
+
+@pytest.mark.parametrize("chunk", SPAN_CHUNKS)
+def test_stage_spans_tile_the_step_of_their_frame(runs, chunk):
+    steps = {}
+    stages = defaultdict(list)
+    for name, frame, t0, t1 in runs[f"torch{chunk}"]["slam"].spans:
+        assert t0 <= t1, name
+        if name == "step":
+            assert frame not in steps
+            steps[frame] = (t0, t1)
+        elif name.startswith("step."):
+            stages[frame].append((t0, t1))
+    assert sorted(stages) == sorted(steps)
+    for frame, (a, b) in steps.items():
+        parts = sorted(stages[frame])
+        assert all(a <= t0 and t1 <= b for t0, t1 in parts), frame
+        # each stage starts where the one before it ended, from the step's
+        # start to its end
+        assert parts[0][0] == a and parts[-1][1] == b, frame
+        assert all(p[1] == q[0] for p, q in zip(parts, parts[1:])), frame
+
+
+@pytest.mark.parametrize("chunk", SPAN_CHUNKS)
+def test_span_durations_add_up_to_timing(runs, chunk):
+    slam = runs[f"torch{chunk}"]["slam"]
+    total = defaultdict(int)
+    for name, _, t0, t1 in slam.spans:
+        total[name] += t1 - t0
+    for name, (seconds, calls) in slam.timing.items():
+        # each stamp is rounded to the nanosecond
+        assert total[name] * 1e-9 == pytest.approx(seconds, rel=0, abs=2e-9 * calls), name
+    parts = sum(v[0] for k, v in slam.timing.items() if k.startswith("step."))
+    assert parts == pytest.approx(slam.timing["step"][0], rel=1e-9)
+
+
+@pytest.mark.parametrize("chunk", SPAN_CHUNKS)
+def test_one_sync_wait_per_host_sync(runs, chunk):
+    """On the CPU a service round's point-count snapshot is a copy with no
+    event to wait on, so every wait is a host sync."""
+    slam = runs[f"torch{chunk}"]["slam"]
+    waits = [s for s in slam.spans if s[0] == "sync_wait"]
+    assert len(waits) == slam.timing["sync_wait"][1] == slam.host_syncs > len(slam.outs)
+    others = [s for s in slam.spans if s[0] not in ("sync_wait", "step")]
+    for _, frame, t0, t1 in waits:
+        inside = [s[0] for s in others if s[1] == frame and s[2] <= t0 and t1 <= s[3]]
+        assert inside, (frame, t0, t1)
+    # the per-frame flag read lies in its stage
+    flag_reads = sum(1 for _, frame, t0, t1 in waits for s in others
+                     if s[0] == "step.decide_and_flag_read" and s[1] == frame
+                     and s[2] <= t0 and t1 <= s[3])
+    assert flag_reads == slam.timing["step"][1]

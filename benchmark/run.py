@@ -51,9 +51,16 @@ def main(argv=None) -> int:
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(cache, "triton"))
     os.environ.setdefault("USE_FLAX", "0")
     os.environ.setdefault("USE_JAX", "0")
+    # one process, one host thread for numpy's and torch's CPU pools: the
+    # window is one Python thread dispatching launches, and idle pool
+    # threads that spin only take cores from it
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ.setdefault(var, "1")
     sys.path[:0] = [HERE, ROOT]
 
     import torch
+
+    torch.set_num_threads(1)
 
     from slambench import manifest
     from slambench.harness import log, run_cell

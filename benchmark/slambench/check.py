@@ -23,7 +23,14 @@ benchmark/cells/<cell>.json gives it (a reading above its limit fails):
   (keyframe branch: triangulation, fusion, local BA);
 * gravity_err_deg: angle between the IMU initialization's gravity, in the
   map's frame, and the true gravity seen from the first frame's body (IMU
-  initialization), 180 where the IMU never initialized.
+  initialization), 180 where the IMU never initialized;
+* kf_ate_m: RMSE of the final map's valid keyframe positions against the
+  ground truth at their times, after a rigid alignment as ate_m's (loop
+  closing: a correction missed, or a wrong one welded, leaves the drift in
+  the keyframes), inf with fewer than 3 keyframes.
+
+gravity_err_deg and kf_ate_m are computed only where the cell's limits
+name them.
 """
 from __future__ import annotations
 
@@ -38,6 +45,17 @@ def _gt(world, frames):
     times = world.frame_times()
     ps, qs = zip(*(world.gt_pose(times[i])[::-1] for i in frames))
     return np.stack(ps).astype(np.float64), np.stack(qs).astype(np.float64)
+
+
+def kf_ate(world, rows) -> float:
+    """kf_ate_m of one session's final keyframe rows."""
+    valid = np.asarray(rows["kf_valid"], bool)
+    if valid.sum() < 3:
+        return float("inf")
+    gt = np.stack([world.gt_pose(float(t))[1] for t in rows["kf_time"][valid]])
+    err, _, _ = stats.aligned_errors(rows["kf_p"][valid].astype(np.float64),
+                                     gt.astype(np.float64))
+    return stats.rmse(err)
 
 
 def _orb_cfgs(config):
@@ -124,6 +142,9 @@ def evaluate(config, traffic, limits, sessions, outs, window, end_frame, seed, d
         g_true = R0.T @ np.array([0.0, 0.0, -9.81]) if R0 is not None else None
         nums["gravity_err_deg"] = (stats.angle_deg(outs["gravity_w"], g_true)
                                    if outs.get("imu_initialized") and R0 is not None else 180.0)
+    if "kf_ate_m" in limits:
+        nums["kf_ate_m"] = max(kf_ate(sessions[s].world, o["rows"])
+                               for s, o in enumerate(outs["sessions"]))
     checks = {}
     for k, lim in limits.items():
         checks[k] = {"value": nums.get(k, float("inf")), "limit": lim}

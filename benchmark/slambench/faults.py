@@ -21,7 +21,11 @@ its window).
   before it, (0, 0, -9.81) in the map's frame;
 * ba_wrong_baseline: the keyframe branch's bundle adjustments (local and
   visual-inertial) see a stereo baseline 25% too long, so they move the
-  map's points 25% deeper than their disparities say.
+  map's points 25% deeper than their disparities say;
+* loop_not_applied: the loop closer's correction (LoopCloser._correct:
+  pose graph, map points, seam fusion, global BA, inertial refinement)
+  runs, and hands back the map it was given, so the loop is counted as
+  closed and the drift stays (kf_ate_m's fault).
 """
 from __future__ import annotations
 
@@ -71,9 +75,18 @@ def _ba_wrong_baseline(real):
     return solve
 
 
-FUSED = "orbslam3_tpu_torch.models.fused"
+def _loop_not_applied(real):
+    def correct(self, st, *a, **k):
+        real(self, st, *a, **k)
+        return st
+    return correct
 
-# name -> (when, [(module, attribute, wrapper)])
+
+FUSED = "orbslam3_tpu_torch.models.fused"
+CLOSER = "orbslam3_tpu_torch.loop.closer"
+
+# name -> (when, [(module, attribute, wrapper)]); an attribute may be a
+# class's method, "Class.method"
 FAULTS = {
     "state_unchanged": ("window", [(FUSED, "_slam_step_core", _state_unchanged)]),
     "half_features": ("start", [(FUSED, "_frontend_chunk", _half_features)]),
@@ -81,6 +94,7 @@ FAULTS = {
     "gravity_dropped": ("start", [(FUSED, "inertial_init", _gravity_dropped)]),
     "ba_wrong_baseline": ("start", [(FUSED, "solve_local_ba", _ba_wrong_baseline),
                                     (FUSED, "solve_vi_ba", _ba_wrong_baseline)]),
+    "loop_not_applied": ("window", [(CLOSER, "LoopCloser._correct", _loop_not_applied)]),
 }
 
 
@@ -88,18 +102,27 @@ def when(name: str) -> str:
     return FAULTS[name][0]
 
 
-def arm(name: str):
-    """Plant the fault; returns the function that takes it out."""
+def target(mod_name: str, path: str):
+    """(the module or class that holds what a fault wraps, its name)."""
     import importlib
 
+    owner = importlib.import_module(mod_name)
+    *outer, attr = path.split(".")
+    for part in outer:
+        owner = getattr(owner, part)
+    return owner, attr
+
+
+def arm(name: str):
+    """Plant the fault; returns the function that takes it out."""
     undo = []
-    for mod_name, attr, wrap in FAULTS[name][1]:
-        mod = importlib.import_module(mod_name)
-        real = getattr(mod, attr)
-        setattr(mod, attr, wrap(real))
-        undo.append((mod, attr, real))
+    for mod_name, path, wrap in FAULTS[name][1]:
+        owner, attr = target(mod_name, path)
+        real = getattr(owner, attr)
+        setattr(owner, attr, wrap(real))
+        undo.append((owner, attr, real))
 
     def disarm():
-        for mod, attr, real in reversed(undo):
-            setattr(mod, attr, real)
+        for owner, attr, real in reversed(undo):
+            setattr(owner, attr, real)
     return disarm

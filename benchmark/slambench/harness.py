@@ -3,8 +3,10 @@
 The run, in order:
 
 1. set-up: the traffic's sessions (rendered once per checkout, then the
-   seed's noise draws), the program's entry point, and the warm-up the
-   traffic names, which drives every shape the window uses;
+   seed's noise draws), the program's entry point (built by the driver
+   that the configuration's `system` names, benchmark/systems/<system>.py),
+   and the warm-up the traffic names, which drives every shape the window
+   uses;
 2. the window: frames fed closed loop for `seconds`, ending at the first
    completed frame after it; with --trace 1 under torch.profiler;
 3. the end-to-end metrics (host clock, allocator peak) or the per-layer
@@ -23,8 +25,8 @@ from dataclasses import dataclass
 import torch
 
 from slambench import check, faults, manifest, stats, traffic
+from slambench.launches import Launches, launch_check, step_spans
 from slambench.roofline import peaks
-from slambench.systems import DRIVERS
 from slambench.trace import Trace
 
 
@@ -34,9 +36,11 @@ def log(msg: str):
 
 @dataclass
 class WindowRecord:
-    """What a per-layer reader reads: the window's length and frames, the
-    program's counters over the window (differences of two snapshots), the
-    trace (None without --trace 1) and the run's configuration."""
+    """What a per-layer reader reads: the window's length and frames, each
+    window frame's latency, the program's counters over the window
+    (differences of two snapshots), the trace and the spans the program and
+    the driver recorded in the window (None without --trace 1) and the run's
+    configuration."""
 
     cell: str
     config: dict
@@ -44,8 +48,12 @@ class WindowRecord:
     keyframes: int
     window_s: float
     counters: dict
+    latencies: list | None = None  # seconds from each frame's call to its pose on the host
     trace: Trace | None = None
     device_kind: str = ""
+    spans: list | None = None  # (name, frame, t0_ns, t1_ns) on time.perf_counter_ns
+    launches: Launches | None = None  # the trace's, by correlation id (slambench/launches.py)
+    _steps: tuple | None = None
 
     def stage_s(self, *stages) -> float:
         """Host seconds of the program's timers (FusedSlam.timing) named."""
@@ -55,16 +63,39 @@ class WindowRecord:
     def peaks(self) -> dict | None:
         return peaks(self.device_kind)
 
+    def step_attribution(self):
+        """(the "step" spans and their parts, the innermost of them that
+        each launch lies in, the launch check), computed once; None without
+        launches or spans."""
+        if self.launches is None or self.spans is None:
+            return None
+        if self._steps is None:
+            steps = step_spans(self.spans)
+            own = self.launches.owners(steps)
+            self._steps = (steps, own, launch_check(self.launches, steps, own))
+        return self._steps
 
-def _delta(a: dict, b: dict) -> dict:
-    out = {}
-    for k, v in b.items():
-        if isinstance(v, dict):
-            out[k] = {s: [x[0] - a[k].get(s, [0.0, 0])[0], x[1] - a[k].get(s, [0.0, 0])[1]]
-                      for s, x in v.items()}
-        else:
-            out[k] = v - a.get(k, 0)
-    return out
+    def stage_work(self, *stages):
+        """(launches, device seconds) of the launches whose innermost "step"
+        span or part is one of `stages` (slambench/launches.py::work); None
+        where there is nothing to read. The launch check is the log's."""
+        att = self.step_attribution()
+        if att is None:
+            return None
+        steps, own, _ = att
+        return self.launches.work(steps, set(stages), own)
+
+
+def _delta(a, b):
+    """b - a for two snapshots of a driver's counters: numbers, [seconds,
+    calls] timers and dicts of either, member by member; what `a` lacks
+    counts from zero."""
+    if isinstance(b, dict):
+        a = a or {}
+        return {k: _delta(a.get(k), v) for k, v in b.items()}
+    if isinstance(b, list):
+        return [y - x for x, y in zip(a or [0] * len(b), b)]
+    return b - (a or 0)
 
 
 def _warmup(driver, spec: dict, read: list):
@@ -118,8 +149,8 @@ def _run_cell(cell, seed, seconds, trace, resolved, device, cache_dir, workers, 
 
     sessions = traffic.build(config, traf, seed, cache_dir, workers, log=log)
     plant("start")
-    spans = [] if trace else None
-    driver = DRIVERS[config["system"]](config, sessions, dev, spans)
+    driver = manifest.load_driver(config["system"])(config, sessions, dev, trace)
+    spans = driver.spans
     if control == "tf32":
         # the lower-precision control: every float32 matrix product in TF32
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -151,6 +182,7 @@ def _run_cell(cell, seed, seconds, trace, resolved, device, cache_dir, workers, 
                 if tw1 - tw0 >= seconds:
                     break
     c1 = driver.counters()
+    window_spans = list(spans) if spans is not None else None
     window_s = tw1 - tw0
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     kind = torch.cuda.get_device_name(dev) if cuda else str(dev)
@@ -164,8 +196,10 @@ def _run_cell(cell, seed, seconds, trace, resolved, device, cache_dir, workers, 
            "peak_device_mib": lambda: peak / 2**20, "setup_s": lambda: setup_s}
     rec = WindowRecord(cell=cell, config=config, frames=len(window),
                        keyframes=c1.get("keyframes", 0) - c0.get("keyframes", 0),
-                       window_s=window_s, counters=_delta(c0, c1), trace=tr if trace else None,
-                       device_kind=kind)
+                       window_s=window_s, counters=_delta(c0, c1), latencies=lat,
+                       trace=tr if trace else None,
+                       device_kind=kind, spans=window_spans,
+                       launches=Launches.from_trace(tr) if trace else None)
     for m in man_metrics:
         if trace:
             v = manifest.load_reader(m["name"])(rec)
@@ -173,12 +207,18 @@ def _run_cell(cell, seed, seconds, trace, resolved, device, cache_dir, workers, 
             v = e2e[m["name"]]() if lat else None
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    log(f"window {window_s:.3f} s, {len(window)} frames")
+    log(f"window {window_s:.3f} s, {len(window)} frames"
+        + (f", {stats.rate(len(window), window_s)!r} frames/s, p90 "
+           f"{1e3 * stats.percentile(lat, 90)!r} ms" if lat else ""))
     log("window latencies ms: " + " ".join(f"{1e3 * x:.1f}" for x in lat))
     stages = rec.counters.get("timing", {})
     if stages:
         log("window stages s/calls: " + ", ".join(
             f"{k} {v[0]:.3f}/{v[1]}" for k, v in sorted(stages.items()) if v[1]))
+    if "loop" in rec.counters:
+        log(f"window loop closer: {rec.counters['loop']}")
+    if rec.step_attribution() is not None:
+        log(f"window launch check: {rec.step_attribution()[2]}")
 
     # after the window: answers still buffered, and the IMU's initialization
     # where the window closed before it (an answer late, not missing)
@@ -206,6 +246,7 @@ def _run_cell(cell, seed, seconds, trace, resolved, device, cache_dir, workers, 
     if trace:
         result["device"]["busy_s"] = tr.busy_s()
         result["device"]["window_s"] = tr.window_s
-        result["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_by_host(spans)}
+        result["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_by_host(
+            [(n, 1e-9 * a, 1e-9 * b) for n, _, a, b in window_spans or []])}
     result["checks"] = checks
     return result

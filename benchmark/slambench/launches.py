@@ -23,6 +23,11 @@ the graph launch.)
 
 Spans are the program's (`FusedSlam.spans`: name, frame, t0_ns, t1_ns on
 time.perf_counter_ns), the clock `Trace` matched against the profiler's.
+The per-layer readers take the step's ("step" and its parts "step.<stage>",
+which tile it) through slambench/harness.py::WindowRecord.stage_work; the
+harness logs `launch_check` beside them. A host call by a launch's name
+that puts no work on the device leaves the second check short by one
+without any id lost.
 """
 from __future__ import annotations
 
@@ -111,6 +116,32 @@ class Launches:
         `spans`, each launch in its innermost span."""
         own = self.owners(spans)
         return {n: list(self.work(spans, {n}, own)) for n in sorted({s[0] for s in spans})}
+
+
+def step_spans(spans) -> list:
+    """The program's "step" spans and their "step.<stage>" parts."""
+    return [s for s in spans if s[0] == "step" or s[0].startswith("step.")]
+
+
+def launch_check(lz: Launches, steps, own) -> dict:
+    """Two checks on a window's attribution (`own`: `lz.owners(steps)`), and
+    whether both hold:
+
+    * the innermost-span assignment: every launch inside a "step" span lands
+      in one of its parts (`in_step_spans` == `in_stage_spans`; the parts tile
+      the step, so this tests the assignment alone);
+    * the correlation: every host call that launches, copies or sets found
+      its device work by id (`launches` == `launch_calls`); the window's
+      device activities that found no launch are those launched before it.
+    """
+    part = np.array([s[0] != "step" for s in steps] + [False], bool)  # own -1 reads False
+    out = {"in_step_spans": int((lz.owners([s for s in steps if s[0] == "step"]) >= 0).sum()),
+           "in_stage_spans": int(part[own].sum()), "launches": len(lz.at),
+           "launch_calls": lz.calls, "activities": len(lz.dev_of),
+           "activities_unmatched": int((lz.dev_of < 0).sum())}
+    out["holds"] = (out["in_step_spans"] == out["in_stage_spans"]
+                    and out["launches"] == out["launch_calls"])
+    return out
 
 
 def union_s(iv: np.ndarray) -> float:

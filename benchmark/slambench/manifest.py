@@ -8,7 +8,9 @@ own, so a later change adds one by adding a file and an entry:
   general generator (slambench/traffic.py);
 * a cell's correctness limits: `benchmark/cells/<workload name>.json`;
 * a per-layer metric: `benchmark/metrics/<metric name>.py`, a reader with a
-  `read(run)` function (slambench/harness.py::WindowRecord is its `run`).
+  `read(run)` function (slambench/harness.py::WindowRecord is its `run`);
+* a system driver: `benchmark/systems/<system>.py`, a `Driver` class, named
+  by a configuration's `system`.
 """
 from __future__ import annotations
 
@@ -73,14 +75,29 @@ def cell_metrics(man: dict, cell: str, trace: bool) -> list:
     return [m for m in man["per_layer" if trace else "end_to_end"] if applies(m, cell)]
 
 
-def load_reader(metric: str):
-    """The `read(run)` function of a per-layer metric's reader file."""
-    path = reader_file(metric)
-    spec = importlib.util.spec_from_file_location(f"slambench_metric_{metric.replace('.', '_')}",
-                                                  path)
+def system_file(system: str) -> Path:
+    return BENCH_DIR / "systems" / f"{system}.py"
+
+
+def _load(path: Path, prefix: str, name: str):
+    spec = importlib.util.spec_from_file_location(f"{prefix}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(metric: str):
+    """The `read(run)` function of a per-layer metric's reader file."""
+    return _load(reader_file(metric), "slambench_metric", metric).read
+
+
+def load_driver(system: str):
+    """The `Driver` class of a system's driver file; a name without a file
+    raises, naming the directory the drivers live in."""
+    path = system_file(system)
+    if not path.is_file():
+        raise KeyError(f"no driver for system {system!r}: {path.name} is not in {path.parent}")
+    return _load(path, "slambench_system", system).Driver
 
 
 def resolve(man: dict, cell: str) -> dict:

@@ -2,10 +2,12 @@
 
 A configuration fixes the world (slambench/synthetic.py, the frozen copy of
 the program's generator): its geometry, textures, photometric stress,
-trajectory and IMU rate. The rendering depends on the configuration alone,
-so it is made once per checkout into `benchmark/.cache/render/` and read
-back by every later run. A traffic mix (benchmark/traffic/<name>.json) and
-`--seed` decide the rest:
+trajectory and IMU rate, and an optional top-level `blackout: [t0, t1]`
+(a camera dropout: the frames at t0 <= t < t1 are flat gray, 127, in both
+images, as SyntheticWorld.render_sequence renders them; the IMU runs on).
+The rendering depends on the configuration alone, so it is made once per
+checkout into `benchmark/.cache/render/` and read back by every later run.
+A traffic mix (benchmark/traffic/<name>.json) and `--seed` decide the rest:
 
 * `imu_noise`: white noise at the configuration's densities (`slam.imu_noise`,
   sigma * sqrt(imu_hz) a sample) is added to the exact IMU samples;
@@ -59,9 +61,14 @@ def world_config(config: dict, world_seed: int) -> syn.SyntheticConfig:
         **config["world"])
 
 
-def _key(wcfg: syn.SyntheticConfig) -> str:
+def _key(wcfg: syn.SyntheticConfig, blackout=None) -> str:
+    """The rendering's cache key: the generator's source, the world and the
+    blackout (a world without one keys as it did before blackouts were
+    taken)."""
     src = (Path(syn.__file__).read_bytes() + json.dumps(wcfg._asdict(), sort_keys=True,
                                                         default=str).encode())
+    if blackout is not None:
+        src += json.dumps({"blackout": [float(t) for t in blackout]}).encode()
     return hashlib.sha256(src).hexdigest()[:16]
 
 
@@ -72,21 +79,26 @@ def _workers() -> int:
         return max(os.cpu_count() or 1, 1)
 
 
-def _render(world: syn.SyntheticWorld, out: Path, workers: int, log):
-    """Render every frame of `world` and its exact IMU samples into `out`."""
+def _render(world: syn.SyntheticWorld, out: Path, workers: int, log, blackout=None):
+    """Render every frame of `world` and its exact IMU samples into `out`;
+    the frames inside `blackout` flat gray."""
     times = world.frame_times()
     cfg = world.cfg
     frames = np.lib.format.open_memmap(out / "frames.npy", mode="w+", dtype=np.uint8,
                                        shape=(len(times), 2, cfg.height, cfg.width))
+    dark = np.zeros(len(times), bool) if blackout is None else (
+        (blackout[0] <= times) & (times < blackout[1]))
+    frames[dark] = 127
+    live = np.flatnonzero(~dark)
     t0 = time.perf_counter()
     if workers <= 1:
-        for i, t in enumerate(times):
-            frames[i] = np.stack(world.render_frame(t)).astype(np.uint8)
+        for i in live:
+            frames[i] = np.stack(world.render_frame(times[i])).astype(np.uint8)
     else:
         # spawn, not fork: the caller may already hold torch's threads
         with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
                                  initializer=syn._pool_init, initargs=(world,)) as ex:
-            for i, (l, r) in enumerate(ex.map(syn._render_one, times, chunksize=4)):
+            for i, (l, r) in zip(live, ex.map(syn._render_one, times[live], chunksize=4)):
                 frames[i, 0] = l.astype(np.uint8)
                 frames[i, 1] = r.astype(np.uint8)
     frames.flush()
@@ -94,18 +106,18 @@ def _render(world: syn.SyntheticWorld, out: Path, workers: int, log):
     imu_t = world.imu_times()
     g, a = zip(*(world.imu_sample(t) for t in imu_t))
     np.savez(out / "imu.npz", t=imu_t, gyro=np.stack(g), acc=np.stack(a))
-    log(f"rendered {len(times)} frames of world seed {cfg.seed} "
-        f"({cfg.width}x{cfg.height}) in {time.perf_counter() - t0:.1f} s on {workers} processes")
+    log(f"rendered {len(live)} frames of world seed {cfg.seed} ({cfg.width}x{cfg.height}), "
+        f"{int(dark.sum())} dark, in {time.perf_counter() - t0:.1f} s on {workers} processes")
 
 
 def cached_world(wcfg: syn.SyntheticConfig, cache_dir: Path = CACHE_DIR, workers: int = 0,
-                 log=print) -> Path:
+                 log=print, blackout=None) -> Path:
     """The directory that holds this world's rendering, made on first use.
     A lock file serializes two processes that would render the same world;
     the rendering is written beside its final place and moved there whole."""
     cache_dir = Path(cache_dir)
     cache_dir.mkdir(parents=True, exist_ok=True)
-    key = _key(wcfg)
+    key = _key(wcfg, blackout)
     final = cache_dir / key
     if (final / "imu.npz").exists():
         return final
@@ -115,7 +127,7 @@ def cached_world(wcfg: syn.SyntheticConfig, cache_dir: Path = CACHE_DIR, workers
             part = cache_dir / f"{key}.partial"
             shutil.rmtree(part, ignore_errors=True)
             part.mkdir()
-            _render(syn.SyntheticWorld(wcfg), part, workers or _workers(), log)
+            _render(syn.SyntheticWorld(wcfg), part, workers or _workers(), log, blackout)
             os.replace(part, final)
     return final
 
@@ -138,7 +150,7 @@ def build(config: dict, traffic: dict, seed: int, cache_dir: Path = CACHE_DIR,
     sessions = []
     for ws in config["world_seeds"]:
         wcfg = world_config(config, ws)
-        d = cached_world(wcfg, cache_dir, workers, log)
+        d = cached_world(wcfg, cache_dir, workers, log, config.get("blackout"))
         world = syn.SyntheticWorld(wcfg)
         times = world.frame_times()
         frames = np.array(np.load(d / "frames.npy", mmap_mode="r"))

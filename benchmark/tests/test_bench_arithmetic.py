@@ -101,3 +101,30 @@ def test_roofline_reader_and_silence():
     idle = manifest.load_reader("device_idle")(_record(trace=tr))
     assert idle == pytest.approx(100 * (1 - 410e-6 / 10e-3))
 
+
+TWINS = [m["name"] for m in manifest.load()["per_layer"] if m["name"].endswith(".steady")
+         and manifest.reader_file(m["name"][:-len(".steady")]).is_file()]
+
+
+def test_every_cold_layer_metric_has_a_steady_twin():
+    cold = [m["name"] for m in manifest.load()["per_layer"] if not m["name"].endswith(".steady")]
+    assert sorted(TWINS) == sorted(n + ".steady" for n in cold)
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_steady_twin_reads_as_its_reader(name):
+    """A `.steady` metric is its reader's number under the steady cell's
+    name (it moves setup_s there, BENCHMARK.json)."""
+    base = name[:-len(".steady")]
+    rec = _record(latencies=[0.5, 0.7, 0.6, 1.9, 0.55])
+    assert manifest.load_reader(name)(rec) == manifest.load_reader(base)(rec)
+
+
+def test_traced_rate_and_tail_readers():
+    lat = [0.1 * i for i in range(1, 11)]
+    rec = _record(latencies=lat)
+    assert manifest.load_reader("tracked_fps.traced.steady")(rec) == pytest.approx(2.0)
+    assert manifest.load_reader("frame_latency_p90_ms.traced")(rec) == pytest.approx(910.0)
+    empty = _record(frames=0, latencies=[])
+    assert manifest.load_reader("tracked_fps.traced.steady")(empty) is None
+    assert manifest.load_reader("frame_latency_p90_ms.traced")(empty) is None

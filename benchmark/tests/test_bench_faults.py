@@ -41,11 +41,16 @@ def test_single_session_fault_fails(fault, number, render_cache):
 
 
 def test_faults_are_taken_out_again():
-    names = ("_slam_step_core", "_frontend_chunk", "inertial_init", "solve_local_ba",
-             "solve_vi_ba")
-    real = [getattr(fused, n) for n in names]
+    """Every fault replaces what it names (a module's function or a class's
+    method) and puts back the original when taken out."""
+    def targets(name):
+        return [faults.target(m, p) for m, p, _ in faults.FAULTS[name][1]]
+
+    every = {t for name in faults.FAULTS for t in targets(name)}
+    real = {t: getattr(*t) for t in every}
+    assert (fused, "_slam_step_core") in every
     for name in faults.FAULTS:
         disarm = faults.arm(name)
-        assert [getattr(fused, n) for n in names] != real
+        assert all(getattr(*t) is not real[t] for t in targets(name)), name
         disarm()
-    assert [getattr(fused, n) for n in names] == real
+    assert all(getattr(*t) is real[t] for t in every)

@@ -1,7 +1,7 @@
 """Launches and device time by span (slambench/launches.py) on made-up
-events, the stage figures and checks of benchmark/stages.py, the
-host_sync_wait_ms reader, and on a card the profiler's launches counted
-inside a span of the host's clock."""
+events, the stage readers and the launch check, the host_sync_wait_ms and
+pose_row_inlier_share readers, and on a card the profiler's launches
+counted inside a span of the host's clock."""
 import time
 
 import numpy as np
@@ -72,30 +72,61 @@ def test_launch_calls_by_name_check_the_ids(lost):
     assert int((lz.dev_of < 0).sum()) == 1  # the activity launched before the window
 
 
-def test_stage_figures_and_their_checks():
-    """benchmark/stages.py's figures: launches and device time of the pose
-    solve a frame and of the keyframe branch a keyframe, host time a
-    launch, and both checks."""
-    import stages
-
+def _stage_record(lz, frames=2, keyframes=1):
     rel = [("step", 0, 0, 100), ("step.pose_solve_vi", 0, 0, 40), ("step.kf_insert", 0, 40, 100),
            ("sync_wait", 0, 50, 60), ("step", 1, 200, 300), ("step.pose_solve_visual", 1, 200, 300)]
     spans = [(n, f, PERF0 + a, PERF0 + b) for n, f, a, b in rel]
     timing = {"step.pose_solve_vi": [0.001, 1], "step.pose_solve_visual": [0.002, 1],
               "step.kf_insert": [0.004, 1], "step": [0.007, 2]}
-    out = stages.stage_figures(_launches(), spans, frames=2, keyframes=1, timing=timing)
+    return WindowRecord(cell="euroc_mh_vi.steady", config={}, frames=frames, keyframes=keyframes,
+                        window_s=5.0, counters={"timing": timing}, spans=spans, launches=lz)
+
+
+def test_stage_figures_and_their_checks():
+    """The stage readers: launches and device time of the pose solve a
+    frame and of the keyframe branch a keyframe, host time a launch, and
+    both checks."""
+    rec = _stage_record(_launches())
+    read = {n: manifest.load_reader(n)(rec) for n in (
+        "pose_solve_launches", "pose_solve_busy_ms", "kf_branch_launches", "kf_branch_busy_ms",
+        "pose_solve_ms")}
     # the pose solve: ids 1 and 4 (a graph's three kernels, one launch)
-    assert out["pose_solve_launches"] == 1.0
-    assert out["pose_solve_busy_ms"] == pytest.approx(1e3 * 40e-9 / 2)
-    assert out["pose_solve_host_us_per_launch"] == pytest.approx(1e6 * 0.003 / 2)
+    assert read["pose_solve_launches"] == 1.0
+    assert read["pose_solve_busy_ms"] == pytest.approx(1e3 * 40e-9 / 2)
+    # host µs a launch, from the two readers
+    assert 1e3 * read["pose_solve_ms"] / read["pose_solve_launches"] == pytest.approx(
+        1e6 * 0.003 / 2)
     # the keyframe branch: ids 2 (ran after its span) and 3 (inside the wait)
-    assert out["kf_branch_launches"] == 2.0
-    assert out["kf_branch_busy_ms"] == pytest.approx(1e3 * 62e-9)
-    assert out["stages"]["step.kf_insert"] == {"launches": 2, "device_ms": pytest.approx(62e-6),
-                                               "host_ms": pytest.approx(4.0), "calls": 1}
-    assert out["launch_check"] == {"in_step_spans": 4, "in_stage_spans": 4, "launches": 5,
-                                   "launch_calls": 5, "activities": 8,
-                                   "activities_unmatched": 1}
+    assert read["kf_branch_launches"] == 2.0
+    assert read["kf_branch_busy_ms"] == pytest.approx(1e3 * 62e-9)
+    assert rec.stage_work("step.kf_insert") == (2, pytest.approx(62e-9))
+    assert rec.step_attribution()[2] == {"in_step_spans": 4, "in_stage_spans": 4, "launches": 5,
+                                         "launch_calls": 5, "activities": 8,
+                                         "activities_unmatched": 1, "holds": True}
+
+
+@pytest.mark.parametrize("name", ["pose_solve_launches", "pose_solve_busy_ms",
+                                  "kf_branch_launches", "kf_branch_busy_ms"])
+def test_stage_readers_silent_without_launches(name):
+    """Nothing to read without the trace's launches, or without frames or
+    keyframes; a window whose correlation check falls short (a kernel's id
+    lost) still reads, its check logged beside it."""
+    read = manifest.load_reader(name)
+    assert read(_stage_record(None)) is None
+    assert read(_stage_record(_launches(), frames=0, keyframes=0)) is None
+    lost = _stage_record(_launches(device=[d for d in DEVICE if d[0] != 2]))
+    assert not lost.step_attribution()[2]["holds"]
+    assert read(lost) is not None
+
+
+def test_pose_row_inlier_share_reader():
+    read = manifest.load_reader("pose_row_inlier_share")
+    rec = WindowRecord(cell="euroc_mh_vi.steady", config={"slam": {"cap": {"n_feat": 1200}}},
+                       frames=10, keyframes=1, window_s=5.0,
+                       counters={"timing": {}, "inliers": 3000})
+    assert read(rec) == pytest.approx(25.0)
+    rec.counters = {"timing": {}}
+    assert read(rec) is None
 
 
 def test_without_correlation_ids_there_is_nothing_to_read():

@@ -73,6 +73,7 @@ def test_every_cell_reports_setup_another_metric_and_a_layer():
 def test_cell_files_found_by_name(cell):
     res = manifest.resolve(MAN, cell)
     assert res["config"]["system"] == "FusedSlam"
+    assert manifest.system_file(res["config"]["system"]).is_file()
     assert res["traffic"]["warmup"]
     assert res["cell"]["limits"]
     for m in manifest.cell_metrics(MAN, cell, True):
@@ -110,9 +111,13 @@ def test_new_cell_is_files_alone(tmp_path, monkeypatch, render_cache):
     from conftest import tiny
     from slambench.harness import run_cell
 
+    import shutil
+
     bench = tmp_path / "benchmark"
     for d in ("traffic", "cells", "configs", "metrics"):
         (bench / d).mkdir(parents=True)
+    shutil.copytree(manifest.BENCH_DIR / "systems", bench / "systems",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     (bench / "traffic" / "cold4.json").write_text(json.dumps(
         {"warmup": {"frames": 4}, "imu_noise": True,
          "pixel_noise_frac": 0.001, "check_keyframes": 1}))

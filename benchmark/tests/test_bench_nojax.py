@@ -1,6 +1,7 @@
 """Nothing the benchmark runs imports JAX or the JAX package, compared by
 whole top-level module names (orbslam3_tpu_torch begins with
-orbslam3_tpu); the reference imports nothing of the program."""
+orbslam3_tpu); only the system drivers import the program, and the
+reference imports nothing of it."""
 import ast
 import os
 import subprocess
@@ -47,9 +48,20 @@ def test_reference_imports_nothing_of_the_program():
         assert "orbslam3_tpu_torch" not in set(_imports(BENCH_DIR / f)), f
 
 
+def test_only_the_drivers_import_the_program():
+    """The program is imported by slambench/systems.py and the driver files
+    benchmark/systems/<system>.py, and by nothing else of the benchmark."""
+    importers = {os.path.relpath(f, BENCH_DIR) for f in _py(BENCH_DIR)
+                 if "orbslam3_tpu_torch" in set(_imports(f))}
+    drivers = {os.path.join("systems", f) for f in os.listdir(BENCH_DIR / "systems")
+               if f.endswith(".py")}
+    assert importers <= {"slambench/systems.py"} | drivers, importers
+    assert "systems/FusedSlam.py" in importers
+
+
 def test_a_run_loads_no_jax():
     code = ("import sys; sys.path[:0] = [%r, %r]; import run; "
-            "import slambench.harness, slambench.systems; "
+            "import slambench.harness, slambench.manifest as m; m.load_driver('FusedSlam'); "
             "print(run.forbidden_modules())" % (str(BENCH_DIR), str(ROOT)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env={k: v for k, v in os.environ.items()
